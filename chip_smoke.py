@@ -9,24 +9,46 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
   1. env        the card (nvidia-smi name, power limit), torch / CUDA /
                 Triton versions; TF32 is switched off for float32 matmuls
                 and convolutions, so float32 means float32.
-  2. build      builds the Triton ``jitter_normalize`` kernel from this
-                checkout into build/triton and times the build.
-  3. kernel     holds the kernel against its plain PyTorch version at the
-                production shape (1024, 3, 128, 128), over all 6 op orders,
-                jitter on and off, saturated / grey / hue-wrapping pixels:
-                float32 IO at atol 2e-5, bfloat16 IO at atol 8e-3 (one
-                bf16 ulp at |x| <= 1). Times both with CUDA events.
-  4. reference  one train step at a tiny float32 config on the card and on
-                the CPU, from the same weights, batch and draws; the losses
-                and gradient norms must agree.
-  5. slice      the production Play-LMP train step (batch 64, window 16,
+  2. build      builds both kernels from this checkout at once, the Triton
+                ``jitter_normalize`` into build/triton and the CUDA C++
+                ``shift_jitter_normalize`` (nvcc -arch=sm_90a) into
+                build/cuda, and times the builds.
+  3. kernel     holds the Triton kernel against its plain PyTorch version
+                at the production shape (1024, 3, 128, 128), over all 6 op
+                orders, jitter on and off, saturated / grey / hue-wrapping
+                pixels: float32 IO at atol 2e-5, bfloat16 IO at atol 8e-3
+                (one bf16 ulp at |x| <= 1). Times both with CUDA events.
+  4. kernel_shift  the CUDA kernel against its plain version on the same
+                images, edge-padded (1024, 3, 140, 140) and unpadded with
+                the pad as a clamp, every shift in [0, 12]^2, float32 at
+                atol 2e-5; times both.
+  5. augment    the fused train augmentation that reaches the CUDA kernel
+                (the counterpart of pallas_augment_rgb_train) on a uint8
+                (64, 16, 200, 200, 3) batch: one launch per call, output
+                finite and in [-1, 1].
+  6. reference  one Play-LMP train step at a tiny float32 config on the
+                card and on the CPU, from the same weights, batch and
+                draws; the losses and gradient norms must agree.
+  7. slice      the production Play-LMP train step (batch 64, window 16,
                 200x200 uint8 -> 128x128 bf16 augmentation, 2x2048 RNN
                 decoder, 2048/4096 transformer posterior, Adam) for 12
                 steps: finite losses, changed parameters, and exactly one
                 kernel launch per step.
-  6. profile    torch.profiler over 5 more steps: the device's busy share
+  8. profile    torch.profiler over 5 more steps: the device's busy share
                 of the step, each stage's host time and device span, and
-                the kernels that take the most device time.
+                the kernels that take the most device time; then one step
+                under torch's sync debug mode: where the host waits for
+                the device.
+  9. reference_tacorl  one TACO-RL (stage 2) step at a tiny float32 config
+                on the card and on the CPU from the same weights, batch and
+                draws; q1/actor/decoder losses and alpha agree to 1e-4.
+ 10. slice_tacorl  the production stage-2 step (stage 1 of phase 7's config
+                saved and grafted through the port's CheckpointManager;
+                configs/module/tacorl.yaml) for 12 steps: finite losses,
+                exactly two jitter launches per step (window and goal),
+                frozen parts bit-unchanged, actor / critics / decoder
+                changed, targets the Polyak average.
+ 11. profile_tacorl  as phase 8, for the stage-2 step.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -37,17 +59,27 @@ import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
 
+from tacorl_tpu_torch.core.checkpoint import CheckpointManager
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
+from tacorl_tpu_torch.modules.tacorl import FROZEN, TACORLModule
+from tacorl_tpu_torch.ops._cuda_build import load_library
 from tacorl_tpu_torch.ops.jitter_aug import (
     PERM_TABLE,
     jitter_normalize,
     jitter_normalize_reference,
     sample_jitter_factors,
+)
+from tacorl_tpu_torch.ops.shift_jitter_aug import (
+    fused_augment_rgb_train,
+    shift_jitter_normalize,
+    shift_jitter_normalize_reference,
 )
 
 # The card's rated rates (NVIDIA's H100 SXM data sheet, dense, at 700 W):
@@ -65,6 +97,7 @@ _OPS_PER_OP = {0: 9, 1: 18, 2: 70}
 KERNEL_SHAPE = (1024, 3, 128, 128)  # batch 64 x window 16 frames at 128x128
 F32_ATOL, BF16_ATOL = 2e-5, 8e-3
 BATCH, WINDOW, RAW_HW = 64, 16, 200
+PAD = 6  # configs/transforms/rl.yaml
 SLICE_STEPS, SLICE_WARMUP = 12, 2
 
 # __graft_entry__._module(tiny=False): the production Play-LMP config
@@ -172,15 +205,29 @@ def phase_env() -> str:
 
 
 def phase_build() -> None:
+    """Builds both kernels from this checkout at once: nvcc compiles the
+    CUDA kernel in the background while Triton compiles its kernel."""
     t0 = time.perf_counter()
-    for dtype in (torch.float32, torch.bfloat16):
-        x = torch.full((2, 3, 128, 128), 100.0, device="cuda", dtype=dtype)
-        g = torch.Generator(device="cuda").manual_seed(0)
-        jitter_normalize(x, sample_jitter_factors(2, g))
+    with ThreadPoolExecutor(1) as pool:
+        cuda = pool.submit(load_library, "shift_jitter")
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.full((2, 3, 128, 128), 100.0, device="cuda", dtype=dtype)
+            g = torch.Generator(device="cuda").manual_seed(0)
+            jitter_normalize(x, sample_jitter_factors(2, g))
+        torch.cuda.synchronize()
+        t_triton = time.perf_counter() - t0
+        cuda.result()
+        t_cuda = time.perf_counter() - t0
+    x = torch.full((2, 3, 140, 140), 100.0, device="cuda")
+    table = torch.zeros((2, 10), device="cuda")
+    table[:, 3:6] = torch.tensor(PERM_TABLE[0], dtype=torch.float32)
+    shift_jitter_normalize(x, table, PAD)
     torch.cuda.synchronize()
     print(
         f"[build] triton jitter_normalize (float32 and bfloat16) built and "
-        f"launched in {time.perf_counter() - t0:.1f} s",
+        f"launched in {t_triton:.1f} s; nvcc built the CUDA shift_jitter_normalize "
+        f"(csrc/shift_jitter.cu, -arch=sm_90a) into build/cuda, {t_cuda:.1f} s "
+        f"from the start of the phase, and it launched",
         flush=True,
     )
 
@@ -212,12 +259,17 @@ def _kernel_inputs():
     return images, factors.contiguous()
 
 
-def _kernel_bound_ms(images: torch.Tensor, factors: torch.Tensor):
-    """Least time for the work: each input read once and each output written
-    once over the HBM rate, and the operations these factors need over the
-    float32 rate; returns (ms, "bytes" | "operations", bytes moved)."""
-    n, c, h, w = images.shape
-    nbytes = 2 * images.numel() * images.element_size() + factors.numel() * 4
+def _kernel_bound_ms(images: torch.Tensor, factors: torch.Tensor, out=None):
+    """Least time for the work: each input read once and each output
+    (``out``, by default the shape and type of ``images``) written once over
+    the HBM rate, and the operations these factors need per output pixel
+    over the float32 rate; returns (ms, "bytes" | "operations", bytes)."""
+    out = images if out is None else out
+    h, w = out.shape[-2:]
+    nbytes = (
+        images.numel() * images.element_size() + out.numel() * out.element_size()
+        + factors.numel() * 4
+    )
     f = factors.cpu().numpy()
     per_pixel = _OPS_SCALE + _OPS_NORMALIZE + (f[:, 6] > 0.5) * sum(
         np.vectorize(_OPS_PER_OP.get)(f[:, 3 + s].astype(np.int64)) for s in range(3)
@@ -270,6 +322,96 @@ def phase_kernel() -> dict:
     }
 
 
+def _shift_inputs():
+    """Production entry-shape images (the 128x128 resized frames, and the
+    same frames edge-padded to 140x140) and a 10-column factor table:
+    kernel 1's table cycling through every op order x apply on/off, and
+    every shift (dy, dx) in [0, 2p]^2."""
+    images, factors = _kernel_inputs()
+    n = images.shape[0]
+    idx = torch.arange(n, device="cuda")
+    span = 2 * PAD + 1
+    shifts = torch.stack([(idx // span) % span, idx % span], dim=-1).float()
+    table = torch.cat([factors[:, :7], shifts, torch.zeros((n, 1), device="cuda")], dim=-1)
+    padded = torch.nn.functional.pad(images, (PAD,) * 4, mode="replicate")
+    return images.contiguous(), padded.contiguous(), table.contiguous()
+
+
+def phase_kernel_shift() -> dict:
+    images, padded, table = _shift_inputs()
+    errs = {}
+    for name, x, is_padded in (("padded", padded, True), ("unpadded", images, False)):
+        got = shift_jitter_normalize(x, table, PAD, padded=is_padded)
+        want = shift_jitter_normalize_reference(x, table, PAD, padded=is_padded)
+        torch.cuda.synchronize()
+        _check(got.dtype == torch.float32 and got.shape == images.shape, "shift kernel output shape/dtype")
+        _check(bool(torch.isfinite(got).all()), "shift kernel output not finite")
+        errs[name] = (got - want).abs().max().item()
+        _check(errs[name] <= F32_ATOL, f"shift_jitter_normalize {name}: max abs err {errs[name]} > {F32_ATOL}")
+    # the main path (fused_augment_rgb_train) passes the unpadded image
+    ms = _time_ms(lambda: shift_jitter_normalize(images, table, PAD, padded=False))
+    plain_ms = _time_ms(lambda: shift_jitter_normalize_reference(images, table, PAD, padded=False))
+    padded_ms = _time_ms(lambda: shift_jitter_normalize(padded, table, PAD))
+    out = torch.empty_like(images)
+    bound_ms, bound_by, nbytes = _kernel_bound_ms(images, table, out)
+    padded_bound_ms, _, padded_bytes = _kernel_bound_ms(padded, table, out)
+    print(
+        f"[kernel_shift] shift_jitter_normalize, all 6 op orders x apply on/off x every "
+        f"shift in [0, {2 * PAD}]^2: max abs err padded {tuple(padded.shape)} "
+        f"{errs['padded']:.3g}, unpadded {tuple(images.shape)} {errs['unpadded']:.3g} "
+        f"(float32, atol {F32_ATOL}) | unpadded (the main path's input): kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
+        f"at {HBM_BYTES_PER_S / 1e12} TB/s) | padded: kernel {padded_ms:.4f} ms, bound "
+        f"{padded_bound_ms:.4f} ms ({padded_bytes / 1e6:.1f} MB); no single PyTorch call "
+        f"computes this function, so no library time",
+        flush=True,
+    )
+    return {
+        "name": "shift_jitter_normalize",
+        "route": "cuda",
+        "source": "tacorl_tpu_torch/csrc/shift_jitter.cu",
+        "replaces": "tacorl_tpu/ops/pallas_aug.py:201",
+        "launches": None,
+        "max_abs_err": max(errs.values()),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": bound_by,
+        "library_ms": None,
+        "comparison_passed": True,
+    }
+
+
+def phase_augment(card: str) -> int:
+    """The fused train augmentation (the counterpart of
+    pallas_augment_rgb_train) on a production window batch; returns the
+    kernel's launches in the timed calls."""
+    images = torch.from_numpy(_batch(BATCH, WINDOW, RAW_HW)["states"]["rgb_static"]).cuda()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    calls = 10
+    shift_jitter_normalize.launches = 0
+    times = []
+    for _ in range(calls):
+        t0 = time.perf_counter()
+        out = fused_augment_rgb_train(images, (128, 128), PAD, generator=g)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = shift_jitter_normalize.launches
+    _check(launches == calls, f"shift_jitter_normalize launched {launches} times in {calls} calls")
+    _check(out.shape == (BATCH, WINDOW, 128, 128, 3) and out.dtype == torch.float32, "augment output shape")
+    _check(bool(torch.isfinite(out).all()), "augment output not finite")
+    lo, hi = out.min().item(), out.max().item()
+    _check(-1.0 <= lo and hi <= 1.0, f"augment output outside [-1, 1]: {lo}, {hi}")
+    print(
+        f"[augment] fused_augment_rgb_train uint8 {tuple(images.shape)} -> float32 "
+        f"{tuple(out.shape)}: median {statistics.median(times[2:]):.3f} ms/call over calls "
+        f"3-{calls}, range [{lo:.4f}, {hi:.4f}], shift_jitter_normalize launches "
+        f"{launches} in {calls} calls | {card}",
+        flush=True,
+    )
+    return launches
+
+
 def phase_reference() -> None:
     """The tiny float32 step on the card against the same step on the CPU."""
     cfg = _tiny_cfg()
@@ -320,7 +462,7 @@ def _production_step():
 
 def phase_slice(card: str):
     """Returns the kernel's launches in the timed steps, the median step
-    time, and (state, step, batch) for the profile."""
+    time, and a function that runs one more step, for the profile."""
     module, state, step, batch = _production_step()
     before = {k: v.detach().clone() for k, v in module.net.state_dict().items()}
     torch.cuda.synchronize()
@@ -352,19 +494,22 @@ def phase_slice(card: str):
         f"jitter_normalize launches {launches} | {card}",
         flush=True,
     )
-    return launches, ms, (state, step, batch)
+    return launches, ms, lambda: step(state, batch)
 
 
-def phase_profile(state, step, batch, step_ms: float, steps: int = 5) -> None:
-    """torch.profiler over ``steps`` more production train steps: the
+def phase_profile(
+    run_step, step_ms: float, tag: str = "profile", stages=("play_lmp/",), steps: int = 5
+) -> None:
+    """torch.profiler over ``steps`` more calls of ``run_step``: the
     device's busy share of the unprofiled median step time ``step_ms``, each
-    stage's host time and device span, and the largest kernels."""
+    stage's host time and device span (the record_function ranges whose
+    names start with one of ``stages``), and the largest kernels."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(steps):
-            state, _ = step(state, batch)
+            run_step()
         torch.cuda.synchronize()
     events = prof.key_averages()
     # record_function ranges appear twice: on the host and as a device-side
@@ -374,26 +519,243 @@ def phase_profile(state, step, batch, step_ms: float, steps: int = 5) -> None:
     spans = {e.key: e for e in events if e.device_type == DeviceType.CUDA and e.key in ranges}
     device_ms = sum(e.device_time_total for e in kernels) / 1e3 / steps
     print(
-        f"[profile] step {step_ms:.3f} ms unprofiled; device kernels {device_ms:.3f} "
+        f"[{tag}] step {step_ms:.3f} ms unprofiled; device kernels {device_ms:.3f} "
         f"ms/step (busy {device_ms / step_ms:.1%}, idle {1 - device_ms / step_ms:.1%}); "
         f"{sum(e.count for e in kernels) / steps:.0f} kernels/step",
         flush=True,
     )
     for e in events:
-        if e.device_type == DeviceType.CPU and e.key.startswith("play_lmp/"):
+        if e.device_type == DeviceType.CPU and e.key.startswith(tuple(stages)):
             span = spans.get(e.key)
             span_ms = span.device_time_total / 1e3 / steps if span else float("nan")
             print(
-                f"[profile] stage {e.key}: host {e.cpu_time_total / 1e3 / steps:.3f} "
+                f"[{tag}] stage {e.key}: host {e.cpu_time_total / 1e3 / steps:.3f} "
                 f"ms/step under the profiler, device span {span_ms:.3f} ms/step",
                 flush=True,
             )
     for e in sorted(kernels, key=lambda e: -e.device_time_total)[:15]:
         print(
-            f"[profile] kernel {e.device_time_total / 1e3 / steps:8.3f} ms/step "
+            f"[{tag}] kernel {e.device_time_total / 1e3 / steps:8.3f} ms/step "
             f"{e.count / steps:5.0f} calls/step  {e.key[:100]}",
             flush=True,
         )
+    syncs = _host_syncs(run_step)
+    print(
+        f"[{tag}] host waits for the device {sum(syncs.values())} times in one step (torch's sync "
+        f"debug mode), at: " + ("; ".join(f"{n}x {site}" for site, n in syncs.items()) or "-"),
+        flush=True,
+    )
+
+
+def _host_syncs(run_step) -> dict:
+    """The calls of one ``run_step`` that make the host wait for the device
+    (a host copy of a result, a copy from pageable host memory), as torch's
+    sync debug mode warns of them: the count by calling file and line."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            run_step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = [
+        f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+        for w in caught if "synchroniz" in str(w.message)
+    ]
+    return {site: sites.count(site) for site in dict.fromkeys(sites)}
+
+
+# ---------------------------------------------------------------------------
+# Stage 2: TACO-RL (CQL over the frozen Play-LMP's latent plans)
+# ---------------------------------------------------------------------------
+
+LMP_TARGET = "tacorl_tpu.modules.play_lmp.PlayLMPModule"
+TRAINED = ("actor", "q1", "q2", "action_decoder")
+
+# configs/module/tacorl.yaml, with its q_network (configs/networks/
+# q_network/mlp.yaml) and the rgb_static entry of configs/transforms/rl.yaml
+# (tests/test_torch_tacorl.py holds this copy to those files)
+TACORL_CFG = {
+    "_target_": "tacorl_tpu.modules.tacorl.TACORLModule",
+    "lmp_epoch_to_load": -1,
+    "finetune_action_decoder": True,
+    "action_decoder_lr": 3.0e-4,
+    "actor_lr": 1.0e-4,
+    "critic_lr": 3.0e-4,
+    "discount": 0.95,
+    "conservative_weight": 1.0,
+    "reward_scale": 10.0,
+    "n_action_samples": 4,
+    "with_lagrange": True,
+    "deterministic_backup": True,
+    "bc_epochs": 5,
+    "with_dr3": False,
+    "dr3_coefficient": 0.03,
+    "with_vib": False,
+    "vib_coefficient": 0.03,
+    "target_entropy": -7.0,
+    "q_network": {
+        "_target_": "tacorl_tpu.networks.critic.MLPQNetwork",
+        "num_layers": 3,
+        "hidden_dim": 256,
+        "last_layer_activation": "Identity",
+    },
+    "transforms": {
+        "rgb_static": {
+            "kind": "rgb", "size": [128, 128], "pad": PAD, "aug_dtype": "bfloat16",
+            "brightness": 0.1, "contrast": 0.1, "hue": 0.02, "jitter_prob": 1.0,
+        }
+    },
+}
+
+
+def _tiny_tacorl_cfg(lmp_dir: str):
+    cfg = copy.deepcopy(TACORL_CFG)
+    cfg.update(play_lmp_dir=lmp_dir, n_action_samples=3)
+    cfg["q_network"].update(num_layers=2, hidden_dim=16)
+    cfg["transforms"] = {"rgb_static": {"kind": "rgb", "size": [48, 48], "pad": 2}}
+    return cfg
+
+
+def _tacorl_batch(b: int, t: int, hw: int, seed: int = 0):
+    """A window batch with a goal frame and ``disp`` (the goal's distance
+    in windows; about one in three is 1, a success)."""
+    batch = _batch(b, t, hw, seed)
+    rs = np.random.RandomState(seed + 1)
+    batch["goal"] = {"rgb_static": rs.randint(0, 255, (b, hw, hw, 3), dtype=np.uint8)}
+    batch["disp"] = rs.randint(1, 4, b)
+    return batch
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return torch.as_tensor(tree).to(device)
+
+
+def _save_lmp(cfg: dict, directory: str, device: str) -> None:
+    """Stage 1 with seed-0 weights, saved as a checkpoint to graft from."""
+    lmp = PlayLMPModule(cfg, device=device)
+    CheckpointManager(directory, config={"module": {"_target_": LMP_TARGET, **cfg}}).save(
+        0, lmp.init_state(0)
+    )
+
+
+def phase_reference_tacorl() -> None:
+    """The tiny float32 TACO-RL step on the card and on the CPU from the
+    same weights, batch and draws."""
+    b, t, n, latent = 3, 5, 3, 16
+    batch = _tacorl_batch(b, t, 56, seed=2)
+    g = torch.Generator().manual_seed(2)
+
+    def aug(m):
+        return {"rgb_static": {"shifts": torch.randint(0, 5, (m, 2), generator=g),
+                               "factors": sample_jitter_factors(m, g)}}
+
+    def eps(*shape):
+        return {"eps": torch.randn(shape, generator=g)}
+
+    draws = {
+        "aug_states": aug(b * t), "aug_goal": aug(b), "plan_eps": torch.randn((b, latent), generator=g),
+        "curr": eps(b, latent), "next_bellman": eps(b, latent),
+        "curr_n": eps(n, b, latent), "next_n": eps(n, b, latent),
+        "rand": torch.rand((b * n, latent), generator=g) * 2.0 - 1.0,
+    }
+    results, weights = {}, None
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_lmp(_tiny_cfg(), tmp, "cpu")
+        for device in ("cpu", "cuda"):
+            module = TACORLModule(_tiny_tacorl_cfg(tmp), device=device)
+            state = module.init_state(0)
+            if weights is None:
+                weights = {k: v.clone() for k, v in module.net.state_dict().items()}
+            module.net.load_state_dict(weights)
+            _, metrics = module.make_train_step()(
+                state, batch, {"bc_phase": 0.0}, draws=_to_device(draws, device)
+            )
+            results[device] = {k: float(v) for k, v in metrics.items()}
+    for key in ("q1_loss", "actor_loss", "action_loss", "alpha"):
+        a, c = results["cuda"][key], results["cpu"][key]
+        _check(abs(a - c) <= 1e-4 * abs(c) + 1e-6, f"reference_tacorl {key}: cuda {a} vs cpu {c}")
+    print(
+        "[reference_tacorl] tiny float32 TACO-RL step, cuda vs cpu (rtol 1e-4): "
+        + ", ".join(
+            f"{k} {results['cuda'][k]:.6f} vs {results['cpu'][k]:.6f}"
+            for k in ("q1_loss", "actor_loss", "action_loss", "alpha")
+        ),
+        flush=True,
+    )
+
+
+def phase_slice_tacorl(card: str):
+    """The production stage-2 step: stage 1 (PRODUCTION_CFG, seed-0
+    weights) saved through the port's CheckpointManager and grafted from
+    there; the stage-2 config of configs/; a device-resident batch.
+    Returns the jitter kernel's launches in the timed steps, the median
+    step time, and a function that runs one more step."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _save_lmp(PRODUCTION_CFG, tmp, "cuda")
+        torch.cuda.empty_cache()
+        module = TACORLModule({**TACORL_CFG, "play_lmp_dir": tmp}, device="cuda")
+        setup_s = time.perf_counter() - t0
+    state = module.init_state(0)
+    step, scalars = module.make_train_step(), module.step_scalars()
+    batch = _to_device(_tacorl_batch(BATCH, WINDOW, RAW_HW), "cuda")
+    net = module.net
+    before = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    torch.cuda.synchronize()
+
+    keys = ("q1_loss", "q2_loss", "actor_loss", "action_loss", "alpha")
+    jitter_normalize.launches = 0
+    times, first, last = [], None, None
+    for i in range(SLICE_STEPS):
+        if i == SLICE_STEPS - 1:
+            targets_prev = {k: v.clone() for k, v in net.state_dict().items() if k.startswith("target_q")}
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, scalars)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        last = {k: metrics[k].item() for k in keys}
+        _check(all(np.isfinite(v) for v in last.values()), f"non-finite stage-2 metrics {last}")
+        first = first or last
+    launches = jitter_normalize.launches
+
+    _check(state.step == SLICE_STEPS, "stage-2 step counter")
+    _check(
+        launches == 2 * SLICE_STEPS,
+        f"jitter_normalize launched {launches} times in {SLICE_STEPS} stage-2 steps (2 per step expected)",
+    )
+    after = net.state_dict()
+
+    def part_keys(part):
+        return [k for k in before if k.split(".")[0] == part]
+
+    for part in FROZEN:
+        _check(all(torch.equal(before[k], after[k]) for k in part_keys(part)), f"frozen {part} changed")
+    for part in TRAINED:
+        _check(any(not torch.equal(before[k], after[k]) for k in part_keys(part)), f"{part} did not change")
+    # the last step's Polyak update: tau * new critic + (1 - tau) * old target
+    tau = module.tau
+    for k, prev in targets_prev.items():
+        want = (1.0 - tau) * prev + tau * after[k[len("target_"):]]
+        _check(torch.allclose(after[k], want, atol=1e-6, rtol=1e-5), f"{k} is not the Polyak average")
+    ms = statistics.median(times[SLICE_WARMUP:])
+    print(
+        f"[slice_tacorl] production TACO-RL (stage 2) train step, batch {BATCH} x window "
+        f"{WINDOW}, {RAW_HW}x{RAW_HW} uint8 states + goal -> 128x128 bf16, frozen "
+        f"2048/4096 posterior, 2x2048 decoder finetune, 3x256 twin critics, n_action_samples "
+        f"{TACORL_CFG['n_action_samples']}: {SLICE_STEPS} steps, median {ms:.3f} ms/step "
+        f"({1e3 / ms:.2f} steps/s) over steps {SLICE_WARMUP + 1}-{SLICE_STEPS}, first step "
+        f"{times[0]:.1f} ms, set-up (stage-1 save + graft) {setup_s:.1f} s | "
+        + ", ".join(f"{k} {first[k]:.4f} -> {last[k]:.4f}" for k in keys)
+        + f" | frozen {'/'.join(FROZEN)} bit-unchanged, {'/'.join(TRAINED)} changed, targets "
+        f"Polyak-averaged | jitter_normalize launches {launches} | {card}",
+        flush=True,
+    )
+    return launches, ms, lambda: step(state, batch, scalars)
 
 
 def main() -> int:
@@ -403,10 +765,22 @@ def main() -> int:
     card = phase_env()
     phase_build()
     kernel = phase_kernel()
+    shift = phase_kernel_shift()
+    shift["launches"] = phase_augment(card)
     phase_reference()
-    kernel["launches"], step_ms, slice_state = phase_slice(card)
-    phase_profile(*slice_state, step_ms)
-    print(json.dumps({"kernels": [kernel]}))
+    launches_lmp, step_ms, run_step = phase_slice(card)
+    phase_profile(run_step, step_ms)
+    del run_step
+    torch.cuda.empty_cache()
+    phase_reference_tacorl()
+    launches_tacorl, tacorl_ms, run_tacorl = phase_slice_tacorl(card)
+    phase_profile(
+        run_tacorl, tacorl_ms, tag="profile_tacorl", stages=("tacorl/", "cql/")
+    )
+    kernel["launches"] = launches_tacorl
+    kernel["launches_by_path"] = {"slice": launches_lmp, "slice_tacorl": launches_tacorl}
+    shift["launches_by_path"] = {"augment": shift["launches"]}
+    print(json.dumps({"kernels": [kernel, shift]}))
     print(card)
     print(json.dumps({
         "ok": True,

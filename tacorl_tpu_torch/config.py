@@ -11,7 +11,18 @@ from __future__ import annotations
 import importlib
 from typing import Any
 
-__all__ = ["get_class"]
+__all__ = ["get_class", "merge"]
+
+
+def merge(base: dict, override: dict) -> dict:
+    """Recursive dict merge; ``override`` wins, ``base`` is not modified."""
+    out = dict(base)
+    for key, value in override.items():
+        if isinstance(value, dict) and isinstance(out.get(key), dict):
+            out[key] = merge(out[key], value)
+        else:
+            out[key] = value
+    return out
 
 _JAX_PREFIX = "tacorl_tpu."
 _PORT_PREFIX = "tacorl_tpu_torch."

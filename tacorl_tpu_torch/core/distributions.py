@@ -21,6 +21,10 @@ __all__ = [
     "TanhNormal",
     "kl_diag_normal",
     "balanced_kl",
+    "gumbel_uniform",
+    "gumbel_softmax_sample",
+    "gumbel_softmax_rsample",
+    "gumbel_softmax_log_prob",
     "logistic_mixture_log_prob",
     "logistic_mixture_sample",
 ]
@@ -151,6 +155,68 @@ class TanhNormal:
             _LOG2 - pre_tanh_value - F.softplus(-2.0 * pre_tanh_value), dim=-1
         )
         return (base + correction)[..., None]
+
+    def sample_and_log_prob(
+        self, generator: Optional[torch.Generator] = None, eps: Optional[Tensor] = None
+    ) -> Tuple[Tensor, Tensor]:
+        """Reparameterised sample and its log-density (..., 1)."""
+        value, z = self.sample_with_pretanh(generator, eps=eps)
+        return value, self.log_prob(value, z)
+
+
+# ---------------------------------------------------------------------------
+# Gumbel softmax (relaxed one-hot categorical)
+# ---------------------------------------------------------------------------
+
+
+def gumbel_uniform(
+    shape, like: Tensor, generator: Optional[torch.Generator] = None
+) -> Tensor:
+    """Uniform draws on (1e-6, 1 - 1e-6), the open interval the JAX
+    samplers draw on so that log(-log(u)) stays finite."""
+    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    return u * (1.0 - 2e-6) + 1e-6
+
+
+def gumbel_softmax_sample(
+    logits: Tensor, generator: Optional[torch.Generator] = None, u: Optional[Tensor] = None
+) -> Tensor:
+    """Hard categorical sample via Gumbel-max; integer indices. ``u`` is
+    the uniform draw (shape of ``logits``)."""
+    if u is None:
+        u = gumbel_uniform(logits.shape, logits, generator)
+    return torch.argmax(logits - torch.log(-torch.log(u)), dim=-1)
+
+
+def gumbel_softmax_rsample(
+    logits: Tensor,
+    temperature: float = 0.5,
+    hard: bool = False,
+    generator: Optional[torch.Generator] = None,
+    u: Optional[Tensor] = None,
+) -> Tensor:
+    """Reparameterised relaxed one-hot sample; ``hard`` applies the
+    straight-through trick."""
+    if u is None:
+        u = gumbel_uniform(logits.shape, logits, generator)
+    gumbel = -torch.log(-torch.log(u))
+    y_soft = torch.softmax((logits + gumbel) / temperature, dim=-1)
+    if not hard:
+        return y_soft
+    index = torch.argmax(y_soft, dim=-1)
+    y_hard = F.one_hot(index, logits.shape[-1]).to(y_soft.dtype)
+    return (y_hard - y_soft).detach() + y_soft
+
+
+def gumbel_softmax_log_prob(logits: Tensor, value: Tensor) -> Tensor:
+    """sum(value * log_softmax(logits)) with keepdim. ``value`` is one-hot
+    or relaxed when its last axis has the class count, else class indices
+    (truncated to int, as JAX's astype). The test is JAX's, shape for
+    shape: an index vector whose length equals the class count is read as
+    one-hot there too."""
+    if value.dim() == 0 or value.shape[-1] != logits.shape[-1]:
+        value = F.one_hot(value.to(torch.int64), logits.shape[-1]).to(logits.dtype)
+    return torch.sum(value * F.log_softmax(logits, dim=-1), dim=-1, keepdim=True)
 
 
 # ---------------------------------------------------------------------------

@@ -15,9 +15,10 @@ Layout: rgb inputs arrive as uint8 (..., H, W, 3) (the loader's layout) and
 leave PLANAR, (..., 3, H', W'), because the encoder consumes NCHW; the JAX
 package returns (..., H', W', 3).
 
-Randomness enters as data: ``draws`` may hold an rgb modality's DrQ
-``shifts`` (N, 2) and jitter ``factors`` (N, 8), or a vector modality's
-``noise``; what is missing is drawn from the ``generator``.
+Randomness enters as data: ``draws``, nested as the states are, may hold
+an rgb modality's DrQ ``shifts`` (N, 2) and jitter ``factors`` (N, 8), or
+a vector modality's ``noise``; what is missing is drawn from the
+``generator``.
 """
 
 from __future__ import annotations
@@ -135,18 +136,17 @@ class DeviceTransforms:
         generator: Optional[torch.Generator] = None,
     ) -> Dict[str, Any]:
         """Transform a (possibly nested) dict of modality arrays, moved to
-        the device first. ``draws`` maps a modality name to its explicit
-        random draws."""
-        draws = draws or {}
+        the device first. ``draws`` has the nesting of ``states`` and maps
+        each modality to its explicit random draws (for a flat dict:
+        modality -> draws)."""
 
-        def walk(node, path):
+        def walk(node, path, node_draws):
             if isinstance(node, dict):
-                return {k: walk(v, path + (k,)) for k, v in node.items()}
+                node_draws = node_draws or {}
+                return {k: walk(v, path + (k,), node_draws.get(k)) for k, v in node.items()}
             value = torch.as_tensor(node).to(self.device)
             if not path:  # flat-array observation (state-based envs)
                 return value.float()
-            return self._apply_one(
-                path[-1], value, train, draws.get(path[-1]), generator
-            )
+            return self._apply_one(path[-1], value, train, node_draws, generator)
 
-        return walk(states, ())
+        return walk(states, (), draws)

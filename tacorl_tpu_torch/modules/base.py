@@ -45,3 +45,10 @@ class AlgorithmModule:
     # annealing); callbacks mutate these host attributes
     def step_scalars(self) -> Dict[str, float]:
         return {}
+
+    def restore_state(self, manager, step: int = -1) -> TrainState:
+        """A fresh state (``init_state``) with a checkpoint's weights,
+        optimizer moments and step loaded into it."""
+        state = self.init_state(0)
+        state.load_state_dict(manager.restore(step, map_location=self.device))
+        return state

@@ -34,6 +34,7 @@ from tacorl_tpu_torch.data.transforms import DeviceTransforms
 from tacorl_tpu_torch.modules.base import AlgorithmModule
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.late_fusion import LateFusion, build_late_fusion
+from tacorl_tpu_torch.networks.layers import reset_parameters
 
 __all__ = ["PlayLMPNet", "PlayLMPModule"]
 
@@ -284,11 +285,7 @@ class PlayLMPModule(AlgorithmModule):
         make the Adam optimizer (optax.adam's defaults)."""
         with torch.random.fork_rng(devices=[]):
             torch.default_generator.manual_seed(seed)
-            # children first, so a layer that overrides its sublayers' init
-            # (attention, position embeddings) has the last word
-            for m in reversed(list(self.net.modules())):
-                if hasattr(m, "reset_parameters"):
-                    m.reset_parameters()
+            reset_parameters(self.net)
         self.net.to(self.device)
         self.generator.manual_seed(seed)
         params = [p for p in self.net.parameters() if p.requires_grad]

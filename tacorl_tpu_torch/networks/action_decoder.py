@@ -172,6 +172,19 @@ class ActionDecoderLogistic(nn.Module):
         ).mean()
         return logistics_loss + self.gripper_alpha * ce
 
+    def loss(
+        self,
+        latent_plan: Tensor,
+        perceptual_emb: Tensor,
+        actions: Tensor,
+        latent_goal: Optional[Tensor] = None,
+    ) -> Tensor:
+        """The imitation loss alone (the TACO-RL decoder finetune)."""
+        logit_probs, log_scales, means, gripper_logits, _ = self(
+            latent_plan, perceptual_emb, latent_goal
+        )
+        return self._loss(logit_probs, log_scales, means, gripper_logits, actions)
+
     def loss_and_act(
         self,
         latent_plan: Tensor,

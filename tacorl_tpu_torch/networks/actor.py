@@ -1,18 +1,24 @@
-"""Policy networks (port of the MLP policy and ``Actor.get_dist`` of
-tacorl_tpu/networks/actor.py). state_dict keys follow the reference:
-``policy.fc_layers.{i}``, ``policy.fc_mean``, ``policy.fc_log_std``,
-``policy.gripper_action``."""
+"""Policy networks (port of the MLP policy and ``Actor`` of
+tacorl_tpu/networks/actor.py: ``get_dist``, ``get_actions``,
+``sample_n_with_log_prob``, ``log_prob``, with the discrete Gumbel-softmax
+gripper). state_dict keys follow the reference: ``policy.fc_layers.{i}``,
+``policy.fc_mean``, ``policy.fc_log_std``, ``policy.gripper_action``."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
-from tacorl_tpu_torch.core.distributions import TanhNormal
+from tacorl_tpu_torch.core.distributions import (
+    TanhNormal,
+    gumbel_softmax_log_prob,
+    gumbel_softmax_rsample,
+    gumbel_softmax_sample,
+)
 from tacorl_tpu_torch.networks.layers import TorchDense
 
 LOG_SIG_MAX = 2.0
@@ -38,6 +44,8 @@ class MLPPolicy(nn.Module):
     ):
         super().__init__()
         self.discrete_gripper = discrete_gripper
+        self.num_layers = num_layers
+        self.hidden_dim = hidden_dim
         cont_dim = action_dim - (1 if discrete_gripper else 0)
         dims = [input_dim] + [hidden_dim] * num_layers
         self.fc_layers = nn.ModuleList(
@@ -86,3 +94,82 @@ class Actor(nn.Module):
     def get_dist(self, state_emb: Tensor, goal_emb: Optional[Tensor] = None) -> TanhNormal:
         out = self(state_emb, goal_emb)
         return TanhNormal(out[0], out[1])
+
+    # The samplers take their draws as data: ``draws`` may hold ``eps``, the
+    # standard normals of the continuous part, and (discrete gripper)
+    # ``gumbel_u``, the uniforms on (1e-6, 1 - 1e-6) of the gripper's Gumbel
+    # noise; the JAX sampler draws them from the two halves of
+    # ``jax.random.split(key)`` (from ``key`` itself without a gripper).
+    # What is missing is drawn from ``generator``.
+
+    def get_actions(
+        self,
+        obs_emb: Tensor,
+        draws: Optional[Dict[str, Tensor]] = None,
+        reparameterize: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        """Returns sampled (actions, log_pi (..., 1)), the JAX
+        ``get_actions`` branch for branch: ``reparameterize`` lets gradients
+        flow through the sample, otherwise only the log-density carries
+        them. (The deterministic branch waits for the rollout policies.)"""
+        draws = draws or {}
+        out = self(obs_emb)
+        dist = TanhNormal(out[0], out[1])
+        if reparameterize:
+            actions, log_pi = dist.sample_and_log_prob(generator, eps=draws.get("eps"))
+        else:
+            value, z = dist.sample_with_pretanh(generator, eps=draws.get("eps"))
+            actions = value.detach()
+            log_pi = dist.log_prob(actions, z.detach())
+        if not self.discrete_gripper:
+            return actions, log_pi
+        grip_logits = out[2]
+        if reparameterize:
+            onehot = gumbel_softmax_rsample(
+                grip_logits, self.gumbel_temperature, hard=True,
+                generator=generator, u=draws.get("gumbel_u"),
+            )
+            grip_idx = torch.argmax(onehot, dim=-1)
+        else:
+            grip_idx = gumbel_softmax_sample(grip_logits, generator, u=draws.get("gumbel_u"))
+        log_pi = log_pi + gumbel_softmax_log_prob(grip_logits, grip_idx)
+        grip_action = grip_idx[..., None].to(actions.dtype) * 2.0 - 1.0
+        return torch.cat([actions, grip_action], dim=-1), log_pi
+
+    def sample_n_with_log_prob(
+        self,
+        obs_emb: Tensor,
+        n_actions: int,
+        draws: Optional[Dict[str, Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        """(n, bs, action_dim) actions and (n, bs, 1) log-densities; the
+        draws carry a leading n axis."""
+        draws = draws or {}
+        out = self(obs_emb)
+        dist = TanhNormal(out[0], out[1])
+        actions, z = dist.sample_with_pretanh(generator, (n_actions,), eps=draws.get("eps"))
+        log_pi = dist.log_prob(actions, z)
+        if not self.discrete_gripper:
+            return actions, log_pi
+        grip_logits = out[2]
+        grip_idx = gumbel_softmax_sample(
+            grip_logits.expand((n_actions,) + tuple(grip_logits.shape)),
+            generator, u=draws.get("gumbel_u"),
+        )
+        grip_action = grip_idx[..., None].to(actions.dtype) * 2.0 - 1.0
+        return (
+            torch.cat([actions, grip_action], dim=-1),
+            log_pi + gumbel_softmax_log_prob(grip_logits, grip_idx),
+        )
+
+    def log_prob(self, obs_emb: Tensor, actions: Tensor) -> Tensor:
+        """Log-density (..., 1) of given actions (the BC warm-start path);
+        a gripper action in [-1, 1] maps to its class by truncation."""
+        out = self(obs_emb)
+        if not self.discrete_gripper:
+            return TanhNormal(out[0], out[1]).log_prob(actions)
+        log_pi = TanhNormal(out[0], out[1]).log_prob(actions[..., :-1])
+        grip_value = actions[..., -1] / 2.0 + 0.5
+        return log_pi + gumbel_softmax_log_prob(out[2], grip_value)

@@ -26,6 +26,7 @@ __all__ = [
     "resolve_dtype",
     "lecun_normal_",
     "MLP",
+    "reset_parameters",
 ]
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
@@ -81,6 +82,15 @@ def lecun_normal_(tensor: Tensor, fan_in: int) -> Tensor:
     +-2 sigma, rescaled to variance 1/fan_in."""
     std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
     return nn.init.trunc_normal_(tensor, 0.0, std, -2.0 * std, 2.0 * std)
+
+
+def reset_parameters(module: nn.Module) -> None:
+    """Re-initialize every layer of ``module`` from torch's global RNG,
+    children first, so a layer that overrides its sublayers' init
+    (attention, position embeddings) has the last word."""
+    for m in reversed(list(module.modules())):
+        if hasattr(m, "reset_parameters"):
+            m.reset_parameters()
 
 
 class TorchDense(nn.Linear):

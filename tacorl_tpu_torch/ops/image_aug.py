@@ -17,6 +17,8 @@ from torch import Tensor
 
 __all__ = [
     "resize_bilinear",
+    "antialias_resize_matrix",
+    "resize_antialias",
     "resize_shift",
     "rgb_to_hsv",
     "hsv_to_rgb",
@@ -67,6 +69,44 @@ def resize_bilinear(
     t = torch.einsum("yh,nchw->ncyw", ry, x)
     out = torch.einsum("xw,ncyw->ncyx", rx, t)
     return out.reshape(*lead, c, oh, ow)
+
+
+def antialias_resize_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """(out, in) float32 weights of ``jax.image.resize(..., "bilinear")``
+    along one axis, whose ``antialias=True`` default widens the triangle
+    kernel by 1/scale on a downscale (``compute_weight_mat`` of
+    ``jax/_src/image/scale.py``, in float32 as JAX computes it): each
+    column normalized to sum 1, and zero where the sample lies outside
+    [-0.5, in - 0.5]. Not torchvision's or PIL's antialias, whose edges
+    differ."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / f32(out_size / in_size)
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None]) / kernel_scale
+    weights = np.maximum(f32(0.0), f32(1.0) - np.abs(x))
+    total = weights.sum(axis=0, keepdims=True)
+    weights = np.where(
+        np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+        weights / np.where(total != 0, total, f32(1.0)),
+        f32(0.0),
+    )
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], weights, f32(0.0)).astype(f32).T
+
+
+def resize_antialias(images: Tensor, out_hw: Sequence[int]) -> Tensor:
+    """``jax.image.resize(images, ..., "bilinear")`` (antialiased on a
+    downscale) of planar float (..., C, H, W) images: two float32 matrix
+    products, rows then columns."""
+    *_, h, w = images.shape
+    oh, ow = int(out_hw[0]), int(out_hw[1])
+    x = images.float()
+    if (h, w) == (oh, ow):
+        return x
+    ry = torch.as_tensor(antialias_resize_matrix(h, oh), device=x.device)
+    rx = torch.as_tensor(antialias_resize_matrix(w, ow), device=x.device)
+    return torch.matmul(torch.matmul(ry, x), rx.T)
 
 
 def resize_shift(

@@ -2,8 +2,11 @@
 
 ``play_lmp_state_dict_from_jax`` turns the JAX ``PlayLMPNet`` param tree
 (nested dicts of numpy arrays) into the port's ``PlayLMPNet`` state_dict,
-the inverse of ``tacorl_tpu/utils/torch_convert.py:assemble_play_lmp``; the
-per-network functions do the same for one network's subtree. The keys are
+the inverse of ``tacorl_tpu/utils/torch_convert.py:assemble_play_lmp``;
+``cql_state_dict_from_jax`` and ``tacorl_state_dict_from_jax`` do the same
+for the CQL and TACO-RL params and target critics (the inverses of
+``assemble_cql`` and ``assemble_tacorl``); the per-network functions do it
+for one network's subtree. The keys are
 the reference TACO-RL layout, so the same state_dict is what a released
 reference checkpoint holds. Layouts:
 
@@ -30,7 +33,12 @@ __all__ = [
     "plan_recognition_state_dict",
     "mlp_policy_state_dict",
     "action_decoder_state_dict",
+    "q_network_state_dict",
+    "visual_actor_state_dict",
+    "visual_critic_state_dict",
     "play_lmp_state_dict_from_jax",
+    "cql_state_dict_from_jax",
+    "tacorl_state_dict_from_jax",
 ]
 
 StateDict = Dict[str, torch.Tensor]
@@ -153,18 +161,90 @@ def action_decoder_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
+def q_network_state_dict(p: Mapping) -> StateDict:
+    """``MLPQNetwork``: ``fc{i}`` -> ``fc_layers.{i}``, ``out``."""
+    sd: StateDict = {}
+    i = 0
+    while f"fc{i}" in p:
+        sd.update(_dense(p[f"fc{i}"], f"fc_layers.{i}."))
+        i += 1
+    sd.update(_dense(p["out"], "out."))
+    return sd
+
+
+def _late_fusion(p: Mapping, modalities: Sequence[str]) -> StateDict:
+    sd: StateDict = {}
+    for i, modality in enumerate(modalities):
+        sd.update(_prefixed(
+            f"networks.{modality}.", vision_encoder_state_dict(p[f"encoders_{i}_1"])
+        ))
+    return sd
+
+
+def visual_critic_state_dict(p: Mapping, modalities: Sequence[str] = ("rgb_static",)) -> StateDict:
+    """``VisualCriticWrapper``: ``encoder.networks.*``, ``goal_encoder.mlp.*``,
+    ``critic.Q.*`` (the inverse of ``convert_visual_critic``)."""
+    sd = _prefixed("encoder.", _late_fusion(p["encoder"], modalities))
+    sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(p["goal_encoder"])))
+    sd.update(_prefixed("critic.Q.", q_network_state_dict(p["critic"]["q_network"])))
+    return sd
+
+
+def visual_actor_state_dict(p: Mapping, modalities: Sequence[str] = ("rgb_static",)) -> StateDict:
+    """``VisualActorWrapper``: ``encoder.networks.*``, ``goal_encoder.mlp.*``,
+    ``actor.policy.*`` (the inverse of ``convert_visual_actor``)."""
+    sd = _prefixed("encoder.", _late_fusion(p["encoder"], modalities))
+    sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(p["goal_encoder"])))
+    sd.update(_prefixed("actor.policy.", mlp_policy_state_dict(p["actor"]["policy"])))
+    return sd
+
+
+def cql_state_dict_from_jax(
+    params: Mapping[str, Any], aux: Mapping[str, Any],
+    modalities: Sequence[str] = ("rgb_static",),
+) -> StateDict:
+    """JAX ``CQLModule`` params and aux (the target critics) -> port
+    ``CQLNet`` state_dict (the inverse of ``assemble_cql``)."""
+    sd = _prefixed("actor.", visual_actor_state_dict(params["actor"], modalities))
+    for name, tree in (("q1", params["q1"]), ("q2", params["q2"]),
+                       ("target_q1", aux["target_q1"]), ("target_q2", aux["target_q2"])):
+        sd.update(_prefixed(f"{name}.", visual_critic_state_dict(tree, modalities)))
+    sd["log_alpha"] = _t(np.asarray(params["log_alpha"]).reshape(1))
+    if "log_alpha_prime" in params:
+        sd["log_alpha_prime"] = _t(np.asarray(params["log_alpha_prime"]).reshape(1))
+    return sd
+
+
+def tacorl_state_dict_from_jax(
+    params: Mapping[str, Any], aux: Mapping[str, Any],
+    modalities: Sequence[str] = ("rgb_static",),
+) -> StateDict:
+    """JAX ``TACORLModule`` params and aux -> port ``TACORLNet`` state_dict
+    (the inverse of ``assemble_tacorl``): the CQL keys and the frozen LMP
+    parts and decoder at top level."""
+    sd = cql_state_dict_from_jax(params, aux, modalities)
+    sd.update(_prefixed(
+        "perceptual_encoder.", _late_fusion(params["perceptual_encoder"], modalities)
+    ))
+    sd.update(_prefixed(
+        "plan_recognition.", plan_recognition_state_dict(params["plan_recognition"])
+    ))
+    sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(params["goal_encoder"])))
+    sd.update(_prefixed(
+        "action_decoder.", action_decoder_state_dict(params["action_decoder"])
+    ))
+    return sd
+
+
 def play_lmp_state_dict_from_jax(
     params: Mapping[str, Any], image_modalities: Sequence[str] = ("rgb_static",)
 ) -> StateDict:
     """JAX ``PlayLMPNet`` params -> port ``PlayLMPNet`` state_dict.
     ``image_modalities`` are the image modalities in the order the JAX
     LateFusion numbered its encoders (``encoders_{i}_1``)."""
-    sd: StateDict = {}
-    for i, modality in enumerate(image_modalities):
-        sd.update(_prefixed(
-            f"perceptual_encoder.networks.{modality}.",
-            vision_encoder_state_dict(params["perceptual_encoder"][f"encoders_{i}_1"]),
-        ))
+    sd = _prefixed(
+        "perceptual_encoder.", _late_fusion(params["perceptual_encoder"], image_modalities)
+    )
     sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(params["goal_encoder"])))
     sd.update(_prefixed(
         "plan_recognition.", plan_recognition_state_dict(params["plan_recognition"])
