@@ -6,22 +6,31 @@
 Phases, one line each, then a JSON ``kernels`` line, the card's name and
 power limit, and the last line ``{"ok": true, "device": {...}}``:
 
-  1. env        the card (nvidia-smi name, power limit), torch / CUDA /
-                Triton versions; TF32 is switched off for float32 matmuls
-                and convolutions, so float32 means float32.
-  2. build      builds both kernels from this checkout at once, the Triton
-                ``jitter_normalize`` into build/triton and the CUDA C++
-                ``shift_jitter_normalize`` (nvcc -arch=sm_90a) into
-                build/cuda, and times the builds.
-  3. kernel     holds the Triton kernel against its plain PyTorch version
-                at the production shape (1024, 3, 128, 128), over all 6 op
-                orders, jitter on and off, saturated / grey / hue-wrapping
-                pixels: float32 IO at atol 2e-5, bfloat16 IO at atol 8e-3
-                (one bf16 ulp at |x| <= 1). Times both with CUDA events.
-  4. kernel_shift  the CUDA kernel against its plain version on the same
-                images, edge-padded (1024, 3, 140, 140) and unpadded with
-                the pad as a clamp, every shift in [0, 12]^2, float32 at
-                atol 2e-5; times both.
+  1. env        the card (nvidia-smi name, power limit, max SM clock),
+                torch / CUDA versions; TF32 is switched off for float32
+                matmuls and convolutions, so float32 means float32.
+  2. build      builds both CUDA C++ kernels from this checkout at once
+                (one nvcc -arch=sm_90a per source, in parallel, into
+                build/cuda), launches each once, and prints each kernel's
+                registers, shared memory and spills (ptxas -v) and its
+                instructions per pixel (cuobjdump -sass of the library).
+  3. kernel     holds ``jitter_normalize`` against its plain PyTorch version
+                at the production shape (1024, 3, 128, 128) and at the
+                stage-2 goal call's N=64, over all 6 op orders, jitter on
+                and off, op rows with contrast in 0, 2 or 3 slots,
+                saturated / grey / hue-wrapping pixels: float32 IO at atol
+                2e-5, bfloat16 IO at atol 8e-3 (one bf16 ulp at |x| <= 1).
+                Also frames off the main path (OTHER_SHAPES), which take
+                the kernel's other instantiations. Times it on the
+                cycled factor mix (half the images jittered), on the main
+                path's mix (``sample_jitter_factors(..., prob=1.0)``) and
+                at N=64,
+                each beside its bytes bound and its instruction budget.
+  4. kernel_shift  ``shift_jitter_normalize`` against its plain version on
+                the same images, edge-padded (1024, 3, 140, 140) and
+                unpadded with the pad as a clamp, every shift in [0, 12]^2,
+                float32 at atol 2e-5, and OTHER_SHAPES; times it on both
+                factor mixes.
   5. augment    the fused train augmentation that reaches the CUDA kernel
                 (the counterpart of pallas_augment_rgb_train) on a uint8
                 (64, 16, 200, 200, 3) batch: one launch per call, output
@@ -56,6 +65,8 @@ It imports nothing of JAX and nothing of the JAX package.
 
 import copy
 import json
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -69,16 +80,19 @@ import torch
 from tacorl_tpu_torch.core.checkpoint import CheckpointManager
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
 from tacorl_tpu_torch.modules.tacorl import FROZEN, TACORLModule
-from tacorl_tpu_torch.ops._cuda_build import load_library
+from tacorl_tpu_torch.ops._cuda_build import build_log, library_path, load_library
 from tacorl_tpu_torch.ops.jitter_aug import (
+    NUM_SMS,
     PERM_TABLE,
     jitter_normalize,
+    jitter_normalize_geometry,
     jitter_normalize_reference,
     sample_jitter_factors,
 )
 from tacorl_tpu_torch.ops.shift_jitter_aug import (
     fused_augment_rgb_train,
     shift_jitter_normalize,
+    shift_jitter_normalize_geometry,
     shift_jitter_normalize_reference,
 )
 
@@ -92,7 +106,11 @@ F32_OPS_PER_S = 67e12
 # contrast (3 x 4, plus 6 for the grayscale sum of its mean), hue (the
 # RGB->HSV->RGB chain of compares, selects and arithmetic, about 70)
 _OPS_SCALE, _OPS_NORMALIZE = 9, 6
-_OPS_PER_OP = {0: 9, 1: 18, 2: 70}
+_OPS_PER_OP = {0: 9, 1: 18, 2: 70}  # any other op code is hue
+LANES_PER_SM = 128  # an SM issues one instruction for 4 warps of 32 lanes a clock
+# op rows the sampler never draws, which the kernels take like the TPU's:
+# contrast in two slots, in all three, and in none
+ODD_OP_ROWS = ((1, 1, 2), (1, 1, 1), (0, 2, 2), (2, 1, 1))
 
 KERNEL_SHAPE = (1024, 3, 128, 128)  # batch 64 x window 16 frames at 128x128
 F32_ATOL, BF16_ATOL = 2e-5, 8e-3
@@ -186,55 +204,177 @@ def _time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def phase_env() -> str:
-    import triton
-
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+def _smi(query: str, fmt: str = "csv,noheader") -> str:
+    return subprocess.run(
+        ["nvidia-smi", f"--query-gpu={query}", f"--format={fmt}"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+# the card's max SM clock in Hz, read by phase_env (for the instruction budgets)
+SM_CLOCK_HZ = None
+
+
+def _device_ms(fn, reps: int = 20, rounds: int = 5) -> float:
+    """Device time of one call of ``fn``: ``reps`` calls captured in a CUDA
+    graph, the graph replayed ``rounds`` times between CUDA events, the
+    median over ``reps``. The replay launches no Python, so host launch
+    gaps, which a per-call event pair would count, are left out."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    return statistics.median(times)
+
+
+def phase_env() -> str:
+    global SM_CLOCK_HZ
+    card = _smi("name,power.limit")
+    SM_CLOCK_HZ = float(_smi("clocks.max.sm", "csv,noheader,nounits")) * 1e6
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     print(
-        f"[env] card: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
-        f"triton {triton.__version__} | tf32: matmul "
+        f"[env] card: {card}, max SM clock {SM_CLOCK_HZ / 1e6:.0f} MHz | torch "
+        f"{torch.__version__} cuda {torch.version.cuda} | tf32: matmul "
         f"{torch.backends.cuda.matmul.allow_tf32} cudnn {torch.backends.cudnn.allow_tf32}",
         flush=True,
     )
     return card
 
 
+def _ptxas_report(log: str) -> dict:
+    """Mangled kernel name -> (registers, smem bytes, spill stores, spill
+    loads), from ptxas -v's report."""
+    report, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and name:
+            report.setdefault(name, [0, 0, 0, 0])[2:] = [int(m.group(1)), int(m.group(2))]
+            continue
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            name = m.group(1)
+            continue
+        m = re.search(r"Used (\d+) registers.*?(\d+) bytes smem", line)
+        if m and name:
+            report.setdefault(name, [0, 0, 0, 0])[:2] = [int(m.group(1)), int(m.group(2))]
+    return {k: tuple(v) for k, v in report.items()}
+
+
+def _sass_counts(lib) -> dict:
+    """Mangled kernel name -> (instructions, float32 instructions), counted
+    in the library's SASS (cuobjdump -sass); NOPs are left out, float32
+    instructions are the F* opcodes (FADD, FMUL, FFMA, FMNMX, FSETP, FSEL,
+    FRND, F2I, ...) but FLO."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run(
+        [tool, "-sass", str(lib)], capture_output=True, text=True, check=True, timeout=300
+    ).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = [0, 0]
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if name and m and m.group(1) != "NOP":
+            counts[name][0] += 1
+            counts[name][1] += m.group(1).startswith("F") and m.group(1) != "FLO"
+    return {k: tuple(v) for k, v in counts.items()}
+
+
+def _kernel_symbol(name: str, k: int) -> str:
+    """The part of the mangled name of the 16-byte-access instantiation of
+    ``name``'s kernel with k chunks per thread (bf16 IO for kernel 1, the
+    main path's)."""
+    if name == "jitter_normalize":
+        return f"23jitter_normalize_kernelI13__nv_bfloat16Li{k}ELb1E"
+    return f"29shift_jitter_normalize_kernelILi{k}ELb1E"
+
+
+# filled by phase_build: per library, the ptxas report and the SASS counts
+KERNEL_REPORTS = {}
+
+
+def _kernel_stats(name: str, k: int) -> dict:
+    """Registers, shared memory, spills and instructions per pixel of one
+    instantiation. The SASS holds the bodies of brightness, contrast and hue
+    once each (the slot loop is not unrolled) and the thread's k x 8 pixels
+    unrolled, so its count over k x 8 is the count per pixel of an image that
+    runs each op once, as the main path's factor rows do."""
+    ptxas, sass = KERNEL_REPORTS[name]
+    sym = _kernel_symbol(name, k)
+    regs, smem, spill_st, spill_ld = next(v for key, v in ptxas.items() if sym in key)
+    total, fp32 = next(v for key, v in sass.items() if sym in key)
+    px = k * 8
+    return {
+        "registers": regs, "smem_static_bytes": smem, "spill_bytes": spill_st + spill_ld,
+        "instr_per_px": total / px, "fp32_instr_per_px": fp32 / px,
+    }
+
+
 def phase_build() -> None:
-    """Builds both kernels from this checkout at once: nvcc compiles the
-    CUDA kernel in the background while Triton compiles its kernel."""
+    """Builds both CUDA kernels from this checkout at once (one nvcc per
+    source, in parallel), launches each once, and prints what ptxas and the
+    SASS say of them."""
+    names = ("jitter_normalize", "shift_jitter")
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(1) as pool:
-        cuda = pool.submit(load_library, "shift_jitter")
-        for dtype in (torch.float32, torch.bfloat16):
-            x = torch.full((2, 3, 128, 128), 100.0, device="cuda", dtype=dtype)
-            g = torch.Generator(device="cuda").manual_seed(0)
-            jitter_normalize(x, sample_jitter_factors(2, g))
-        torch.cuda.synchronize()
-        t_triton = time.perf_counter() - t0
-        cuda.result()
-        t_cuda = time.perf_counter() - t0
-    x = torch.full((2, 3, 140, 140), 100.0, device="cuda")
+
+    def build(name):
+        load_library(name)
+        return time.perf_counter() - t0
+
+    with ThreadPoolExecutor(len(names)) as pool:
+        secs = dict(zip(names, pool.map(build, names)))
+    g = torch.Generator(device="cuda").manual_seed(0)
+    for dtype in (torch.float32, torch.bfloat16):
+        jitter_normalize(torch.full((2, 3, 128, 128), 100.0, device="cuda", dtype=dtype),
+                         sample_jitter_factors(2, g))
     table = torch.zeros((2, 10), device="cuda")
     table[:, 3:6] = torch.tensor(PERM_TABLE[0], dtype=torch.float32)
-    shift_jitter_normalize(x, table, PAD)
+    shift_jitter_normalize(torch.full((2, 3, 140, 140), 100.0, device="cuda"), table, PAD)
     torch.cuda.synchronize()
     print(
-        f"[build] triton jitter_normalize (float32 and bfloat16) built and "
-        f"launched in {t_triton:.1f} s; nvcc built the CUDA shift_jitter_normalize "
-        f"(csrc/shift_jitter.cu, -arch=sm_90a) into build/cuda, {t_cuda:.1f} s "
-        f"from the start of the phase, and it launched",
+        "[build] nvcc -arch=sm_90a built, in parallel from the start of the phase: "
+        + ", ".join(f"csrc/{n}.cu in {t:.1f} s" for n, t in secs.items())
+        + " (with csrc/jitter_common.cuh) into build/cuda; no Triton build; both launched",
         flush=True,
     )
+    for name in names:
+        KERNEL_REPORTS[name] = (_ptxas_report(build_log(name)), _sass_counts(library_path(name)))
+        ptxas, sass = KERNEL_REPORTS[name]
+        _check(bool(ptxas) and bool(sass), f"no ptxas report or SASS for {name}")
+        for sym, (regs, smem, spill_st, spill_ld) in sorted(ptxas.items()):
+            total, fp32 = sass.get(sym, (0, 0))
+            print(
+                f"[build] {sym}: {regs} registers, {smem} bytes static smem, spill "
+                f"{spill_st}/{spill_ld} bytes st/ld, SASS {total} instructions ({fp32} F*)",
+                flush=True,
+            )
 
 
 def _kernel_inputs():
     """Production-shape images with special colours in their first rows,
-    and a factor table cycling through all 6 op orders x apply on/off."""
+    and a factor table cycling through all 6 op orders x apply on/off (the
+    "cycled" mix, on which the earlier kernels were timed)."""
     n, _, h, w = KERNEL_SHAPE
     g = torch.Generator(device="cuda").manual_seed(0)
     images = torch.rand(KERNEL_SHAPE, generator=g, device="cuda") * 255.0
@@ -259,6 +399,22 @@ def _kernel_inputs():
     return images, factors.contiguous()
 
 
+def _with_odd_rows(factors: torch.Tensor) -> torch.Tensor:
+    """The table with every 7th image's op row one of ODD_OP_ROWS, jitter on."""
+    out = factors.clone()
+    idx = torch.arange(out.shape[0], device=out.device)[6::7]
+    rows = torch.tensor(ODD_OP_ROWS, dtype=torch.float32, device=out.device)
+    out[idx, 3:6] = rows[torch.arange(len(idx), device=out.device) % len(ODD_OP_ROWS)]
+    out[idx, 6] = 1.0
+    return out.contiguous()
+
+
+def _main_mix(n: int, seed: int = 1) -> torch.Tensor:
+    """The factor table the main path draws: every image jittered."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return sample_jitter_factors(n, g, prob=1.0)
+
+
 def _kernel_bound_ms(images: torch.Tensor, factors: torch.Tensor, out=None):
     """Least time for the work: each input read once and each output
     (``out``, by default the shape and type of ``images``) written once over
@@ -271,8 +427,9 @@ def _kernel_bound_ms(images: torch.Tensor, factors: torch.Tensor, out=None):
         + factors.numel() * 4
     )
     f = factors.cpu().numpy()
+    per_op = np.vectorize(lambda op: _OPS_PER_OP.get(int(op), _OPS_PER_OP[2]))
     per_pixel = _OPS_SCALE + _OPS_NORMALIZE + (f[:, 6] > 0.5) * sum(
-        np.vectorize(_OPS_PER_OP.get)(f[:, 3 + s].astype(np.int64)) for s in range(3)
+        per_op(f[:, 3 + s].astype(np.int64)) for s in range(3)
     )
     ops = float(per_pixel.sum()) * h * w
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
@@ -280,44 +437,132 @@ def _kernel_bound_ms(images: torch.Tensor, factors: torch.Tensor, out=None):
     return (bytes_ms, "bytes", nbytes) if bytes_ms >= ops_ms else (ops_ms, "operations", nbytes)
 
 
+def _issue_ms(instr_per_px: float, pixels: int) -> float:
+    """Least time to issue ``instr_per_px`` instructions for each of
+    ``pixels`` on every SM's lanes at the card's max SM clock."""
+    return instr_per_px * pixels / (NUM_SMS * LANES_PER_SM * SM_CLOCK_HZ) * 1e3
+
+
+def _report(tag: str, ms: float, bound: tuple, stats: dict, pixels: int) -> str:
+    bound_ms, bound_by, nbytes = bound
+    issue = _issue_ms(stats["instr_per_px"], pixels)
+    fp32 = _issue_ms(stats["fp32_instr_per_px"], pixels)
+    return (
+        f"{tag}: {ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB at "
+        f"{HBM_BYTES_PER_S / 1e12} TB/s, {bound_ms / ms:.1%} of it, {nbytes / ms / 1e9:.2f} TB/s), "
+        f"issue budget {issue:.4f} ms ({stats['instr_per_px']:.1f} instr/px; F* {fp32:.4f} ms, "
+        f"{stats['fp32_instr_per_px']:.1f}/px)"
+    )
+
+
+def _compare(got, want, atol, what):
+    torch.cuda.synchronize()
+    _check(got.dtype == want.dtype and got.shape == want.shape, f"{what}: output shape/dtype")
+    _check(bool(torch.isfinite(got.float()).all()), f"{what}: output not finite")
+    err = (got.float() - want.float()).abs().max().item()
+    _check(err <= atol, f"{what}: max abs err {err} > {atol}")
+    return err
+
+
+# (n, h, w) off the main path that take the kernels' other instantiations:
+# 2 and 4 chunks a thread (frames above 128x128), and scalar accesses
+# (kernel 1: h*w not a multiple of 8; kernel 2: a row not a multiple of 4)
+OTHER_SHAPES = ((3, 50, 50), (2, 130, 130), (2, 180, 180), (2, 200, 200))
+
+
+def _other_shape_errs(kernel: str) -> float:
+    """Largest error of ``kernel`` against its plain version over
+    OTHER_SHAPES (kernel 1 in both dtypes; kernel 2 padded and unpadded),
+    with random images, every op order and the odd op rows, jitter on."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    rows = torch.tensor(PERM_TABLE + ODD_OP_ROWS, dtype=torch.float32, device="cuda")
+    worst = 0.0
+    for n, h, w in OTHER_SHAPES:
+        m = n * len(rows)
+        factors = sample_jitter_factors(m, g)
+        factors[:, 3:6] = rows.repeat(n, 1)
+        images = torch.rand((m, 3, h, w), generator=g, device="cuda") * 255.0
+        if kernel == "jitter_normalize":
+            for dtype, atol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
+                x = images.to(dtype)
+                worst = max(worst, _compare(jitter_normalize(x, factors),
+                                            jitter_normalize_reference(x, factors), atol,
+                                            f"jitter_normalize {dtype} {tuple(x.shape)}"))
+        else:
+            table = _shift_table(factors)
+            for x, padded in ((images, False), (_pad(images), True)):
+                worst = max(worst, _compare(
+                    shift_jitter_normalize(x, table, PAD, padded=padded),
+                    shift_jitter_normalize_reference(x, table, PAD, padded=padded), F32_ATOL,
+                    f"shift_jitter_normalize {tuple(x.shape)} padded={padded}"))
+    return worst
+
+
 def phase_kernel() -> dict:
     images, factors = _kernel_inputs()
+    odd = _with_odd_rows(factors)
+    n = images.shape[0]
     errs = {}
     for dtype, atol in ((torch.float32, F32_ATOL), (torch.bfloat16, BF16_ATOL)):
-        x = images.to(dtype).contiguous()
-        got = jitter_normalize(x, factors)
-        want = jitter_normalize_reference(x, factors)
-        torch.cuda.synchronize()
-        _check(got.dtype == dtype and got.shape == x.shape, "kernel output shape/dtype")
-        _check(bool(torch.isfinite(got.float()).all()), "kernel output not finite")
-        err = (got.float() - want.float()).abs().max().item()
-        errs[dtype] = err
-        _check(err <= atol, f"jitter_normalize {dtype}: max abs err {err} > {atol}")
+        for count in (n, 64):
+            x, f = images[:count].to(dtype).contiguous(), odd[:count].contiguous()
+            errs[(dtype, count)] = _compare(
+                jitter_normalize(x, f), jitter_normalize_reference(x, f), atol,
+                f"jitter_normalize {dtype} N={count}",
+            )
+    other = _other_shape_errs("jitter_normalize")
     x = images.to(torch.bfloat16).contiguous()  # the main path's dtype
-    ms = _time_ms(lambda: jitter_normalize(x, factors))
-    plain_ms = _time_ms(lambda: jitter_normalize_reference(x, factors))
-    bound_ms, bound_by, nbytes = _kernel_bound_ms(x, factors)
+    main = _main_mix(n)
+    x64, main64 = x[:64].contiguous(), _main_mix(64, seed=2)
+    ms_old = _device_ms(lambda: jitter_normalize(x, factors))
+    ms = _device_ms(lambda: jitter_normalize(x, main))
+    ms64 = _device_ms(lambda: jitter_normalize(x64, main64))
+    plain_ms = _time_ms(lambda: jitter_normalize_reference(x, main))
+    geo = jitter_normalize_geometry(n, *x.shape[2:])
+    geo64 = jitter_normalize_geometry(64, *x.shape[2:])
+    stats = _kernel_stats("jitter_normalize", geo["chunks_per_thread"])
+    stats64 = _kernel_stats("jitter_normalize", geo64["chunks_per_thread"])
+    bound = _kernel_bound_ms(x, main)
+    bound_old, bound64 = _kernel_bound_ms(x, factors), _kernel_bound_ms(x64, main64)
+    px = x.shape[0] * x.shape[2] * x.shape[3]
     print(
-        f"[kernel] jitter_normalize {tuple(x.shape)}: max abs err float32 "
-        f"{errs[torch.float32]:.3g} (atol {F32_ATOL}), bfloat16 "
-        f"{errs[torch.bfloat16]:.3g} (atol {BF16_ATOL}) | bf16 kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12} TB/s); no single "
-        f"PyTorch call computes this function, so no library time",
+        f"[kernel] jitter_normalize (CUDA C++, csrc/jitter_normalize.cu) max abs err vs plain, "
+        f"op rows incl. contrast in 0/2/3 slots: float32 {errs[(torch.float32, n)]:.3g} (N={n}), "
+        f"{errs[(torch.float32, 64)]:.3g} (N=64) (atol {F32_ATOL}); bfloat16 "
+        f"{errs[(torch.bfloat16, n)]:.3g}, {errs[(torch.bfloat16, 64)]:.3g} (atol {BF16_ATOL}); "
+        f"other frames {OTHER_SHAPES} (2-4 chunks a thread, scalar accesses): {other:.3g}",
         flush=True,
     )
+    for tag, g in (("N=1024", geo), ("N=64", geo64)):
+        print(f"[kernel] jitter_normalize launch geometry {tag}: {g}", flush=True)
+    print(f"[kernel] jitter_normalize bf16 {tuple(x.shape)}, registers {stats['registers']}, "
+          f"spills {stats['spill_bytes']} bytes | "
+          + _report("cycled mix", ms_old, bound_old, stats, px) + " | "
+          + _report("main mix (prob 1.0)", ms, bound, stats, px), flush=True)
+    print(f"[kernel] jitter_normalize bf16 {tuple(x64.shape)} (stage-2 goal call), registers "
+          f"{stats64['registers']} | " + _report("main mix", ms64, bound64, stats64, px // 16)
+          + f" | plain (N=1024, main mix) {plain_ms:.4f} ms; no single PyTorch call computes "
+          f"this function, so no library time", flush=True)
     return {
         "name": "jitter_normalize",
-        "route": "triton",
-        "source": "tacorl_tpu_torch/ops/jitter_aug.py",
+        "route": "cuda",
+        "source": "tacorl_tpu_torch/csrc/jitter_normalize.cu",
         "replaces": "tacorl_tpu/ops/pallas_aug.py:94",
         "launches": None,
-        "max_abs_err": errs[torch.bfloat16],
+        "max_abs_err": errs[(torch.bfloat16, n)],
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
         "library_ms": None,
+        "ms_cycled_mix": ms_old,
+        "bound_ms_cycled_mix": bound_old[0],
+        "ms_n64": ms64,
+        "bound_ms_n64": bound64[0],
+        "geometry": geo,
+        "geometry_n64": geo64,
+        **stats,
+        "issue_ms": _issue_ms(stats["instr_per_px"], px),
         "comparison_passed": True,
     }
 
@@ -328,42 +573,60 @@ def _shift_inputs():
     kernel 1's table cycling through every op order x apply on/off, and
     every shift (dy, dx) in [0, 2p]^2."""
     images, factors = _kernel_inputs()
-    n = images.shape[0]
+    return images.contiguous(), _pad(images), _shift_table(factors)
+
+
+def _pad(images: torch.Tensor) -> torch.Tensor:
+    return torch.nn.functional.pad(images, (PAD,) * 4, mode="replicate").contiguous()
+
+
+def _shift_table(factors: torch.Tensor) -> torch.Tensor:
+    n = factors.shape[0]
     idx = torch.arange(n, device="cuda")
     span = 2 * PAD + 1
     shifts = torch.stack([(idx // span) % span, idx % span], dim=-1).float()
-    table = torch.cat([factors[:, :7], shifts, torch.zeros((n, 1), device="cuda")], dim=-1)
-    padded = torch.nn.functional.pad(images, (PAD,) * 4, mode="replicate")
-    return images.contiguous(), padded.contiguous(), table.contiguous()
+    return torch.cat([factors[:, :7], shifts, torch.zeros((n, 1), device="cuda")], dim=-1).contiguous()
 
 
 def phase_kernel_shift() -> dict:
     images, padded, table = _shift_inputs()
+    odd = _shift_table(_with_odd_rows(table[:, :8]))
     errs = {}
     for name, x, is_padded in (("padded", padded, True), ("unpadded", images, False)):
-        got = shift_jitter_normalize(x, table, PAD, padded=is_padded)
-        want = shift_jitter_normalize_reference(x, table, PAD, padded=is_padded)
-        torch.cuda.synchronize()
-        _check(got.dtype == torch.float32 and got.shape == images.shape, "shift kernel output shape/dtype")
-        _check(bool(torch.isfinite(got).all()), "shift kernel output not finite")
-        errs[name] = (got - want).abs().max().item()
-        _check(errs[name] <= F32_ATOL, f"shift_jitter_normalize {name}: max abs err {errs[name]} > {F32_ATOL}")
+        errs[name] = _compare(
+            shift_jitter_normalize(x, odd, PAD, padded=is_padded),
+            shift_jitter_normalize_reference(x, odd, PAD, padded=is_padded),
+            F32_ATOL, f"shift_jitter_normalize {name}",
+        )
+    other = _other_shape_errs("shift_jitter_normalize")
+    main = _shift_table(_main_mix(images.shape[0]))
     # the main path (fused_augment_rgb_train) passes the unpadded image
-    ms = _time_ms(lambda: shift_jitter_normalize(images, table, PAD, padded=False))
-    plain_ms = _time_ms(lambda: shift_jitter_normalize_reference(images, table, PAD, padded=False))
-    padded_ms = _time_ms(lambda: shift_jitter_normalize(padded, table, PAD))
+    ms_old = _device_ms(lambda: shift_jitter_normalize(images, table, PAD, padded=False))
+    ms = _device_ms(lambda: shift_jitter_normalize(images, main, PAD, padded=False))
+    plain_ms = _time_ms(lambda: shift_jitter_normalize_reference(images, main, PAD, padded=False))
+    padded_ms = _device_ms(lambda: shift_jitter_normalize(padded, main, PAD))
     out = torch.empty_like(images)
-    bound_ms, bound_by, nbytes = _kernel_bound_ms(images, table, out)
-    padded_bound_ms, _, padded_bytes = _kernel_bound_ms(padded, table, out)
+    bound, bound_old = _kernel_bound_ms(images, main, out), _kernel_bound_ms(images, table, out)
+    padded_bound = _kernel_bound_ms(padded, main, out)
+    geo = shift_jitter_normalize_geometry(images.shape[0], *images.shape[2:], *images.shape[2:])
+    geo_padded = shift_jitter_normalize_geometry(images.shape[0], *padded.shape[2:], *images.shape[2:])
+    stats = _kernel_stats("shift_jitter", geo["chunks_per_thread"])
+    px = images.shape[0] * images.shape[2] * images.shape[3]
     print(
-        f"[kernel_shift] shift_jitter_normalize, all 6 op orders x apply on/off x every "
-        f"shift in [0, {2 * PAD}]^2: max abs err padded {tuple(padded.shape)} "
-        f"{errs['padded']:.3g}, unpadded {tuple(images.shape)} {errs['unpadded']:.3g} "
-        f"(float32, atol {F32_ATOL}) | unpadded (the main path's input): kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
-        f"at {HBM_BYTES_PER_S / 1e12} TB/s) | padded: kernel {padded_ms:.4f} ms, bound "
-        f"{padded_bound_ms:.4f} ms ({padded_bytes / 1e6:.1f} MB); no single PyTorch call "
-        f"computes this function, so no library time",
+        f"[kernel_shift] shift_jitter_normalize, all 6 op orders x apply on/off, op rows with "
+        f"contrast in 0/2/3 slots, every shift in [0, {2 * PAD}]^2: max abs err padded "
+        f"{tuple(padded.shape)} {errs['padded']:.3g}, unpadded {tuple(images.shape)} "
+        f"{errs['unpadded']:.3g}; other frames {OTHER_SHAPES}, padded and unpadded (2-4 chunks "
+        f"a thread, scalar copies): {other:.3g} (float32, atol {F32_ATOL})",
+        flush=True,
+    )
+    print(f"[kernel_shift] launch geometry unpadded {geo}; padded {geo_padded}", flush=True)
+    print(
+        f"[kernel_shift] unpadded (the main path's input), registers {stats['registers']}, spills "
+        f"{stats['spill_bytes']} bytes | " + _report("cycled mix", ms_old, bound_old, stats, px)
+        + " | " + _report("main mix", ms, bound, stats, px)
+        + f" | padded, main mix: {padded_ms:.4f} ms, bound {padded_bound[0]:.4f} ms | plain "
+        f"{plain_ms:.4f} ms; no single PyTorch call computes this function, so no library time",
         flush=True,
     )
     return {
@@ -375,9 +638,16 @@ def phase_kernel_shift() -> dict:
         "max_abs_err": max(errs.values()),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
+        "bound_ms": bound[0],
+        "bound_by": bound[1],
         "library_ms": None,
+        "ms_cycled_mix": ms_old,
+        "bound_ms_cycled_mix": bound_old[0],
+        "ms_padded": padded_ms,
+        "bound_ms_padded": padded_bound[0],
+        "geometry": geo,
+        **stats,
+        "issue_ms": _issue_ms(stats["instr_per_px"], px),
         "comparison_passed": True,
     }
 

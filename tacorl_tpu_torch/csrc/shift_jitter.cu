@@ -8,173 +8,193 @@
 //
 //   x[c, r, q] = clip(src[c, clamp(r + dy - off, 0, in_h - 1),
 //                           clamp(q + dx - off, 0, in_w - 1)] / 255, 0, 1)
-//   y = three op slots in the image's order (0 brightness, 1 contrast
-//       around the mean of the grayscale image as it stands at that slot,
-//       anything else hue), or x where apply <= 0.5
+//   y = three op slots in the image's order (jitter_common.cuh), or x
+//       where apply <= 0.5
 //   out = (y - 0.5) / 0.5, float32 (N, 3, out_h, out_w)
 //
 // off = 0 reads an edge-padded (N, 3, out_h + 2p, out_w + 2p) input, where
 // r + dy never leaves the image (the TPU kernel's input); off = p reads the
 // unpadded (N, 3, out_h, out_w) image and the clamp is the edge padding, so
 // no padded copy is made. The TPU kernel shifted with two one-hot selection
-// matmuls per channel; here the shift is the offset of the load. dy, dx and
-// the op codes come from the float table by truncation, as the TPU kernel
-// casts them.
+// matmuls per channel; here the shift is an address. dy, dx and the op codes
+// come from the float table by truncation, as the TPU kernel casts them.
 //
-// What bounds it: bytes. Each image is read once and written once
-// (production: 1024 x 3 x 128 x 128 float32 each way) and the arithmetic is
-// a few dozen float32 operations per pixel. Design: one block per image; the
-// shifted, scaled image lives in dynamic shared memory (3 x 128 x 128 x 4 =
-// 196,608 bytes at the production size), so the contrast slot's grayscale
-// mean, a block reduction, needs no second read of device memory. Every
-// thread owns the same pixels in every pass, so only the reductions need
-// barriers.
+// What bounds it on the H100: bytes (float32 in and out, a few dozen float32
+// operations per pixel). Design: each image is split by bands of output rows
+// over a cluster of C CTAs (ops/shift_jitter_aug.py:
+// shift_jitter_normalize_geometry). A CTA copies its band's source rows,
+// whole and clamped, into shared memory with 16-byte cp.async copies, all in
+// flight at once; 24-27 KB per CTA at 128x128 (C = 8) instead of a whole
+// 196 KB image, so several CTAs share an SM and one CTA's copies overlap
+// another's arithmetic. Each thread then reads its pixels at the shifted
+// column (thread-consecutive, so free of bank conflicts) into registers,
+// runs the chain there, and stores them thread-consecutive (coalesced). The
+// contrast slot's mean is a sum over the cluster through distributed shared
+// memory: the image is read from device memory once and no pixel is computed
+// twice.
 
-#include <cuda_runtime.h>
+#include <cstdint>
+
+#include "jitter_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 1024;
-constexpr int kFactors = 10;
+namespace cg = cooperative_groups;
+using jitter::kChunk;
 
-__device__ __forceinline__ float clip01(float v) { return fminf(fmaxf(v, 0.0f), 1.0f); }
+constexpr int kFactors = 10;
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) { return min(max(v, lo), hi); }
 
-// floor-mod by 1, as jnp's float % (the result takes the divisor's sign)
-__device__ __forceinline__ float mod1(float v) { return v - floorf(v); }
-
-// RGB -> HSV, h + delta (mod 1), HSV -> RGB; the guards and the tie order
-// (maxc == r first, then maxc == g) of the TPU kernel's helpers
-__device__ __forceinline__ void hue_shift(float& r, float& g, float& b, float delta) {
-  const float maxc = fmaxf(fmaxf(r, g), b);
-  const float minc = fminf(fminf(r, g), b);
-  const float d = maxc - minc;
-  const float safe_d = d > 0.0f ? d : 1.0f;
-  const float s = maxc > 0.0f ? d / (maxc > 0.0f ? maxc : 1.0f) : 0.0f;
-  const float rc = (maxc - r) / safe_d;
-  const float gc = (maxc - g) / safe_d;
-  const float bc = (maxc - b) / safe_d;
-  float h = maxc == r ? bc - gc : (maxc == g ? 2.0f + rc - bc : 4.0f + gc - rc);
-  h = d > 0.0f ? h : 0.0f;
-  h = mod1(mod1(h / 6.0f) + delta);
-  const float fi = floorf(h * 6.0f);
-  const float f = h * 6.0f - fi;
-  const float v = maxc;
-  const float p = v * (1.0f - s);
-  const float q = v * (1.0f - f * s);
-  const float t = v * (1.0f - (1.0f - f) * s);
-  const int i = static_cast<int>(fi) % 6;  // h * 6 can round to 6.0
-  r = (i == 0 || i == 5) ? v : (i == 1 ? q : (i == 4 ? t : p));
-  g = (i == 1 || i == 2) ? v : (i == 0 ? t : (i == 3 ? q : p));
-  b = (i == 3 || i == 4) ? v : (i == 2 ? t : (i == 5 ? q : p));
+__device__ __forceinline__ void copy16(float* dst_smem, const float* src) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(dst_smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
 }
 
-// Sum of one value per thread over the block; every thread gets the total.
-__device__ float block_sum(float v, float* scratch) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (lane == 0) scratch[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < (blockDim.x >> 5) ? scratch[lane] : 0.0f;
-    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-    if (lane == 0) scratch[32] = v;
-  }
-  __syncthreads();
-  const float total = scratch[32];
-  __syncthreads();  // scratch is reused by the next reduction
-  return total;
-}
-
-__global__ void __launch_bounds__(kThreads)
+// Thread t holds the band's pixels t + blockDim.x * i, i < P, row-major
+// over the band's out_w-wide rows: consecutive threads on consecutive
+// pixels. With kVecIn the source rows are copied in 16-byte pieces
+// (in_w % 4 == 0 and a 16-byte aligned source), else one float at a time.
+template <int K, bool kVecIn>
+__global__ void __launch_bounds__(jitter::kMaxThreads)
 shift_jitter_normalize_kernel(const float* __restrict__ src, const float* __restrict__ factors,
                               float* __restrict__ out, int in_h, int in_w, int out_h, int out_w,
-                              int off) {
-  extern __shared__ float smem[];
-  const int hw = out_h * out_w;
-  float* img = smem;             // 3 * hw: the shifted, scaled image
-  float* scratch = smem + 3 * hw;  // 33 floats for the reductions
+                              int off, int csize, int band_rows) {
+  constexpr int P = K * kChunk;
+  extern __shared__ float4 smem4[];
+  float* rows = reinterpret_cast<float*>(smem4);  // [3][band_rows][in_w]: the clamped source rows
+  __shared__ jitter::Scratch scratch;
 
-  const long long n = blockIdx.x;
+  const int rank = static_cast<int>(cg::this_cluster().block_rank());
+  const long long n = blockIdx.x / csize;
   const float* fac = factors + n * kFactors;
-  const float bf = fac[0], cf = fac[1], hf = fac[2];
-  const bool apply = fac[6] > 0.5f;
+  const jitter::Jitter jit = jitter::load_jitter(fac);
   const int dy = static_cast<int>(fac[7]);
   const int dx = static_cast<int>(fac[8]);
   const long long in_plane = static_cast<long long>(in_h) * in_w;
-  const float* base = src + n * 3 * in_plane;
-  const float inv255 = static_cast<float>(1.0 / 255.0);
+  const float* img = src + n * 3 * in_plane;
+  const int r0 = rank * band_rows;
+  const int nrows = max(0, min(out_h, r0 + band_rows) - r0);
 
-  for (int p = threadIdx.x; p < hw; p += blockDim.x) {
-    const int r = p / out_w, q = p - (p / out_w) * out_w;
-    const long long at = static_cast<long long>(clampi(r + dy - off, 0, in_h - 1)) * in_w +
-                         clampi(q + dx - off, 0, in_w - 1);
-    img[p] = clip01(base[at] * inv255);
-    img[hw + p] = clip01(base[in_plane + at] * inv255);
-    img[2 * hw + p] = clip01(base[2 * in_plane + at] * inv255);
-  }
-
-  if (apply) {
-    for (int slot = 0; slot < 3; ++slot) {
-      const int op = static_cast<int>(fac[3 + slot]);
-      float mean = 0.0f;
-      if (op == 1) {
-        float acc = 0.0f;
-        for (int p = threadIdx.x; p < hw; p += blockDim.x)
-          acc += 0.2989f * img[p] + 0.587f * img[hw + p] + 0.114f * img[2 * hw + p];
-        mean = block_sum(acc, scratch) / static_cast<float>(hw);
-      }
-      for (int p = threadIdx.x; p < hw; p += blockDim.x) {
-        float r = img[p], g = img[hw + p], b = img[2 * hw + p];
-        if (op == 0) {
-          r = clip01(r * bf);
-          g = clip01(g * bf);
-          b = clip01(b * bf);
-        } else if (op == 1) {
-          const float shift = (1.0f - cf) * mean;
-          r = clip01(cf * r + shift);
-          g = clip01(cf * g + shift);
-          b = clip01(cf * b + shift);
-        } else {
-          hue_shift(r, g, b, hf);
+  // 1. the band's source rows, clamped, into shared memory
+  const int per_row = kVecIn ? in_w / 4 : in_w;
+  const int lanes_per_row = min(per_row, static_cast<int>(blockDim.x));
+  const int rows_per_pass = blockDim.x / lanes_per_row;
+  const int tr = threadIdx.x / lanes_per_row, tv = threadIdx.x - tr * lanes_per_row;
+  if (tr < rows_per_pass) {
+    for (int c = 0; c < 3; ++c) {
+      for (int lr = tr; lr < nrows; lr += rows_per_pass) {
+        const float* from = img + c * in_plane +
+                            static_cast<long long>(clampi(r0 + lr + dy - off, 0, in_h - 1)) * in_w;
+        float* to = rows + (c * band_rows + lr) * in_w;
+        for (int v = tv; v < per_row; v += lanes_per_row) {
+          if (kVecIn) {
+            copy16(to + 4 * v, from + 4 * v);
+          } else {
+            to[v] = __ldg(from + v);
+          }
         }
-        img[p] = r;
-        img[hw + p] = g;
-        img[2 * hw + p] = b;
       }
     }
   }
+  if (kVecIn) asm volatile("cp.async.wait_all;\n" ::: "memory");
+  __syncthreads();
 
-  float* dst = out + n * 3 * static_cast<long long>(hw);
-  for (int p = threadIdx.x; p < hw; p += blockDim.x) {
-    dst[p] = (img[p] - 0.5f) / 0.5f;
-    dst[hw + p] = (img[hw + p] - 0.5f) / 0.5f;
-    dst[2 * hw + p] = (img[2 * hw + p] - 0.5f) / 0.5f;
+  // 2. this thread's pixels at the shifted columns, scaled, into registers
+  const int threads = blockDim.x;
+  const int band_px = nrows * out_w;
+  const int first = threadIdx.x;
+  const int nvalid = clampi((band_px - first + threads - 1) / threads, 0, P);
+  const float* rows_r = rows;
+  const float* rows_g = rows + band_rows * in_w;
+  const float* rows_b = rows + 2 * band_rows * in_w;
+  // (row, column) of pixel first + threads * i, stepped without a division
+  const int step_rows = threads / out_w, step_cols = threads - step_rows * out_w;
+  int lr = first / out_w, q = first - lr * out_w;
+  const int shift = dx - off;
+  float r[P], g[P], b[P];
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (i < nvalid) {
+      const int at = lr * in_w + clampi(q + shift, 0, in_w - 1);
+      r[i] = jitter::scale01(rows_r[at]);
+      g[i] = jitter::scale01(rows_g[at]);
+      b[i] = jitter::scale01(rows_b[at]);
+    } else {
+      r[i] = g[i] = b[i] = 0.0f;
+    }
+    lr += step_rows;
+    q += step_cols;
+    if (q >= out_w) {
+      q -= out_w;
+      ++lr;
+    }
   }
+
+  // 3. the op slots, with the contrast means summed over the cluster
+  const bool shared_read =
+      jitter::apply_ops(r, g, b, nvalid, jit, out_h * out_w, csize, scratch);
+
+  // 4. normalized, stored thread-consecutive
+  const long long out_plane = static_cast<long long>(out_h) * out_w;
+  float* dst_r = out + n * 3 * out_plane + static_cast<long long>(r0) * out_w + first;
+  float* dst_g = dst_r + out_plane;
+  float* dst_b = dst_g + out_plane;
+#pragma unroll
+  for (int i = 0; i < P; ++i) {
+    if (i < nvalid) {
+      dst_r[i * threads] = jitter::normalize(r[i]);
+      dst_g[i * threads] = jitter::normalize(g[i]);
+      dst_b[i * threads] = jitter::normalize(b[i]);
+    }
+  }
+  // no CTA leaves while another may still read its part of a cluster sum
+  if (shared_read) cg::this_cluster().sync();
+}
+
+template <int K>
+int launch_k(const void* src, const void* factors, void* out, int n, int in_h, int in_w,
+             int out_h, int out_w, int off, int csize, int threads, int band_rows, int smem,
+             void* stream) {
+  const bool vec = in_w % 4 == 0 && reinterpret_cast<std::uintptr_t>(src) % 16 == 0;
+  auto run = [&](auto kernel) {
+    return jitter::launch_clusters(kernel, n * csize, threads, csize, smem, stream,
+                                   static_cast<const float*>(src), static_cast<const float*>(factors),
+                                   static_cast<float*>(out), in_h, in_w, out_h, out_w, off, csize,
+                                   band_rows);
+  };
+  return vec ? run(shift_jitter_normalize_kernel<K, true>) : run(shift_jitter_normalize_kernel<K, false>);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs for an out_h x out_w image.
-int shift_jitter_normalize_smem_bytes(int out_h, int out_w) {
-  return static_cast<int>((3 * out_h * out_w + 33) * sizeof(float));
+// Bytes of dynamic shared memory one CTA needs for a band of ``band_rows``
+// source rows of ``in_w`` floats in each of the 3 planes.
+int shift_jitter_normalize_smem_bytes(int band_rows, int in_w) {
+  return static_cast<int>(3 * band_rows * in_w * sizeof(float));
 }
 
-// Launches one block per image on ``stream``; returns cudaGetLastError().
+// Launches clusters of ``csize`` CTAs of ``threads`` threads per image, each
+// CTA owning ``band_rows`` output rows and each thread ``k`` x 8 pixels, on
+// ``stream`` (the geometry of shift_jitter_normalize_geometry). Returns 0, a
+// CUDA error code, or -1 when the cluster shape cannot be scheduled.
 int shift_jitter_normalize_launch(const void* src, const void* factors, void* out, int n,
-                                  int in_h, int in_w, int out_h, int out_w, int off,
-                                  void* stream) {
-  const int smem = shift_jitter_normalize_smem_bytes(out_h, out_w);
-  cudaError_t err = cudaFuncSetAttribute(shift_jitter_normalize_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  shift_jitter_normalize_kernel<<<n, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(src), static_cast<const float*>(factors),
-      static_cast<float*>(out), in_h, in_w, out_h, out_w, off);
-  return static_cast<int>(cudaGetLastError());
+                                  int in_h, int in_w, int out_h, int out_w, int off, int csize,
+                                  int threads, int k, int band_rows, void* stream) {
+  const bool shape_ok = (csize == 1 || csize == 2 || csize == 4 || csize == 8) &&
+                        (k == 1 || k == 2 || k == 4) && threads % 32 == 0 && threads > 0 &&
+                        threads <= jitter::kMaxThreads && band_rows > 0 &&
+                        csize * band_rows >= out_h &&
+                        threads * k * kChunk >= band_rows * out_w;
+  if (!shape_ok) return static_cast<int>(cudaErrorInvalidValue);
+  const int smem = shift_jitter_normalize_smem_bytes(band_rows, in_w);
+  switch (k) {
+    case 1: return launch_k<1>(src, factors, out, n, in_h, in_w, out_h, out_w, off, csize, threads, band_rows, smem, stream);
+    case 2: return launch_k<2>(src, factors, out, n, in_h, in_w, out_h, out_w, off, csize, threads, band_rows, smem, stream);
+    default: return launch_k<4>(src, factors, out, n, in_h, in_w, out_h, out_w, off, csize, threads, band_rows, smem, stream);
+  }
 }
 
 }  // extern "C"

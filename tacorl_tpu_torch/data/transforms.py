@@ -92,7 +92,7 @@ class DeviceTransforms:
 
     def _rgb_train(self, planar, cfg, size, draws, generator) -> Tensor:
         """Resize + DrQ shift (two GEMM passes in ``aug_dtype``), then the
-        fused jitter/normalize tail: the Triton kernel on CUDA unless the
+        fused jitter/normalize tail: the CUDA kernel on CUDA unless the
         config sets ``use_kernel: false`` (counterpart of ``use_pallas``)."""
         # aug_dtype: bfloat16 halves the bytes of the resize -> shift ->
         # jitter chain; float32 keeps parity with the JAX reference in tests

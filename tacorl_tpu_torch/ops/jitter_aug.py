@@ -1,38 +1,42 @@
-"""Fused colour-jitter + normalize: a hand-written Triton kernel for Hopper.
+"""Fused colour-jitter + normalize: a hand-written CUDA C++ kernel for
+Hopper, its plain version, and the factor sampler.
 
 Replaces ``tacorl_tpu/ops/pallas_aug.py:_jitter_kernel`` (launched by
 ``fused_jitter_normalize``). Per image of a planar (N, 3, H, W) batch in
 0..255, f32 or bf16 IO, f32 math:
 
     x = clip(img / 255, 0, 1)
-    y = three op slots in the image's order (factors[3:6]):
-        0 brightness clip(x * b), 1 contrast clip(c * x + (1 - c) * mean(gray)),
-        2 hue (RGB -> HSV, h + delta mod 1, -> RGB)
+    y = three op slots in the image's order (factors[3:6]), any op row:
+        0 brightness clip(x * b), 1 contrast clip(c * x + (1 - c) * mean(gray))
+        with the mean of the image as it stands at that slot, else hue
+        (RGB -> HSV, h + delta mod 1, -> RGB)
     out = (where(factors[6] > 0.5, y, x) - 0.5) / 0.5, in the input dtype
 
 with the same (N, 8) factor table [brightness, contrast, hue, op0, op1,
 op2, apply, pad] as the TPU kernel.
 
-What bounds it on the H100: bytes. It reads and writes N*3*H*W elements
-once each (production: 1024 x 3 x 128 x 128 bf16, 100.7 MB each way) and
-does a few dozen f32 operations per pixel, far below the card's compute.
-Design: one program per image, a loop over pixel tiles inside it.
-Sweep 1 computes the image up to its contrast slot and reduces the
-grayscale to its mean (exactly one slot is contrast, so one reduction
-suffices); sweep 2 recomputes the whole chain with that mean and stores.
-Sweep 1 is a second read of the image (the batch exceeds the 50 MB L2),
-skipped for images whose jitter is off. The TPU kernel instead held the
-whole image in VMEM for one read; a Hopper block has no room for that.
+What bounds it on the H100: bytes (production: 1024 x 3 x 128 x 128 bf16,
+100.7 MB each way), and at bf16 IO the issue rate of the hue chain's
+float32 arithmetic is of the same order. The kernel source is
+``tacorl_tpu_torch/csrc/jitter_normalize.cu`` (with the shared
+``csrc/jitter_common.cuh``), built by nvcc for sm_90a into ``build/cuda``
+at its first launch (``ops/_cuda_build.py``). Design: each image is split
+over a thread-block cluster (``jitter_normalize_geometry``); every thread
+loads its pixels once with 16-byte accesses, keeps them in registers
+through the chain and stores them; a contrast slot's mean is a sum over the
+cluster through distributed shared memory. So the image is read once and
+no pixel is computed twice.
 """
 
 from __future__ import annotations
 
-import os
-from pathlib import Path
+import ctypes
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 from torch import Tensor
 
+from tacorl_tpu_torch.ops._cuda_build import load_library
 from tacorl_tpu_torch.ops.image_aug import (
     adjust_brightness,
     adjust_contrast,
@@ -43,6 +47,7 @@ from tacorl_tpu_torch.ops.image_aug import (
 __all__ = [
     "jitter_normalize",
     "jitter_normalize_reference",
+    "jitter_normalize_geometry",
     "sample_jitter_factors",
     "PERM_TABLE",
 ]
@@ -50,11 +55,18 @@ __all__ = [
 # permutation code -> per-slot op ids (0=brightness, 1=contrast, 2=hue)
 PERM_TABLE = ((0, 1, 2), (0, 2, 1), (1, 0, 2), (1, 2, 0), (2, 0, 1), (2, 1, 0))
 
-_BLOCK = 1024
-_NUM_WARPS = 8
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "triton"
-_KERNEL = None
-tl = None  # triton.language, bound by _build_kernel
+# Launch geometry of the two jitter kernels (csrc/jitter_common.cuh)
+NUM_SMS = 132  # H100 SXM
+MAX_SMEM_BYTES = 232448  # shared memory a Hopper CTA may opt into (227 KB)
+CLUSTER_SIZES = (1, 2, 4, 8)  # the portable cluster sizes
+MAX_THREADS = 256  # jitter::kMaxThreads
+CHUNK = 8  # pixels of a plane per 16-byte bf16 access (jitter::kChunk)
+SCRATCH_BYTES = (MAX_THREADS // 32 + 3) * 4  # sizeof(jitter::Scratch)
+# grow the cluster until a call puts two CTAs on every SM, while each CTA
+# keeps at least a warp's worth of chunks
+_FILL_CTAS = 2 * NUM_SMS
+_MIN_BAND_CHUNKS = 32
+_UNSCHEDULABLE = -1  # jitter::kUnschedulable
 
 
 def sample_jitter_factors(
@@ -89,6 +101,73 @@ def sample_jitter_factors(
         ],
         dim=-1,
     )
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def block_shape(band_chunks: int) -> Tuple[int, int]:
+    """(threads, chunks per thread) of a CTA that holds ``band_chunks``
+    chunks of 8 pixels: at most ``MAX_THREADS`` threads of 1, 2 or 4
+    chunks each, the fewest chunks per thread that fit."""
+    k = next(k for k in (1, 2, 4) if band_chunks <= MAX_THREADS * k)
+    return max(32, 32 * _cdiv(_cdiv(band_chunks, k), 32)), k
+
+
+def pick_cluster(
+    n: int, band_chunks: Callable[[int], int], fits: Callable[[int], bool] = lambda c: True
+) -> Optional[int]:
+    """The cluster size for n images whose CTAs would each hold
+    ``band_chunks(c)`` chunks: the smallest size at which every thread
+    holds one chunk (failing that two, then four) and ``fits(c)`` holds,
+    then doubled (up to 8) while the call puts fewer than two CTAs on every
+    SM and each CTA keeps at least a warp's worth of chunks. None when no
+    size fits. One chunk a thread keeps a thread's registers low (48 at
+    8 pixels), so more CTAs share an SM and hide each other's loads."""
+    for k in (1, 2, 4):
+        sizes = [c for c in CLUSTER_SIZES if band_chunks(c) <= k * MAX_THREADS and fits(c)]
+        if sizes:
+            c = sizes[0]
+            while (n * c < _FILL_CTAS and c < CLUSTER_SIZES[-1]
+                   and band_chunks(2 * c) >= _MIN_BAND_CHUNKS):
+                c *= 2
+            return c
+    return None
+
+
+def jitter_normalize_geometry(n: int, h: int, w: int) -> Dict[str, int]:
+    """Launch geometry of ``jitter_normalize`` for n images of h x w: each
+    image is one cluster of ``cluster`` CTAs, each CTA a band of
+    ``band_chunks`` chunks of 8 pixels per plane, ``threads`` threads of
+    ``chunks_per_thread`` chunks each; ``grid`` CTAs and ``smem_bytes`` of
+    shared memory per CTA (``pick_cluster``). Raises ValueError for an
+    image that 8 CTAs of 256 threads x 4 chunks cannot hold."""
+    chunks = _cdiv(h * w, CHUNK)
+
+    def band(c: int) -> int:
+        return _cdiv(chunks, c)
+
+    c = pick_cluster(n, band)
+    if c is None:
+        raise ValueError(
+            f"a {h}x{w} image does not fit one cluster of {CLUSTER_SIZES[-1]} CTAs "
+            f"({CLUSTER_SIZES[-1] * 4 * MAX_THREADS * CHUNK} pixels at most)"
+        )
+    threads, k = block_shape(band(c))
+    return {
+        "cluster": c, "grid": n * c, "threads": threads, "chunks_per_thread": k,
+        "band_chunks": band(c), "smem_bytes": SCRATCH_BYTES,
+    }
+
+
+def raise_on_status(kernel: str, status: int) -> None:
+    """Raise for a launcher's non-zero status (-1: the cluster shape cannot
+    be scheduled; anything else a CUDA error code)."""
+    if status == _UNSCHEDULABLE:
+        raise RuntimeError(f"{kernel}: the cluster shape cannot be scheduled on this card")
+    if status != 0:
+        raise RuntimeError(f"{kernel}: kernel launch failed with CUDA error {status}")
 
 
 def jitter_normalize_reference(images: Tensor, factors: Tensor) -> Tensor:
@@ -127,155 +206,43 @@ def _check(images: Tensor, factors: Tensor) -> None:
         raise ValueError("images and factors must be contiguous")
 
 
+def _library():
+    lib = load_library("jitter_normalize")
+    fn = lib.jitter_normalize_launch
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def jitter_normalize(images: Tensor, factors: Tensor) -> Tensor:
     """Counterpart of ``fused_jitter_normalize``: (N, 3, H, W) float32 or
-    bfloat16 in 0..255 and an (N, 8) float32 factor table -> normalized
-    images in [-1, 1], input dtype. Each image's op row must hold exactly
-    one contrast op (``sample_jitter_factors`` guarantees it).
+    bfloat16 in 0..255 and an (N, 8) float32 factor table (any op rows) ->
+    normalized images in [-1, 1], input dtype.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    Triton kernel on the current stream (or raises)."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
+    kernel on the current stream, or raises (a failed build or launch, or a
+    shape the kernel cannot take, is never replaced by the plain version)."""
     _check(images, factors)
     if images.device.type == "cpu":
         return jitter_normalize_reference(images, factors)
     if images.device.type != "cuda":
         raise ValueError(f"unsupported device {images.device}")
-    kernel = _build_kernel()
-    out = torch.empty_like(images)
     n, _, h, w = images.shape
-    with torch.cuda.device(images.device):
-        kernel[(n,)](images, factors, out, h * w, BLOCK=_BLOCK, num_warps=_NUM_WARPS)
+    geo = jitter_normalize_geometry(n, h, w)
+    lib = _library()
+    out = torch.empty_like(images)
+    if n == 0:
+        return out
+    stream = torch.cuda.current_stream(images.device).cuda_stream
+    status = lib.jitter_normalize_launch(
+        images.data_ptr(), factors.data_ptr(), out.data_ptr(), n, h * w,
+        int(images.dtype == torch.bfloat16), geo["cluster"], geo["threads"],
+        geo["chunks_per_thread"], geo["band_chunks"], stream,
+    )
+    raise_on_status("jitter_normalize", status)
     jitter_normalize.launches += 1
     return out
 
 
 jitter_normalize.launches = 0
-
-
-# ---------------------------------------------------------------------------
-# Triton kernel. The functions below are plain Python until ``_build_kernel``
-# imports Triton (never at module import: the CPU tests import this module)
-# and rebinds them as ``triton.jit`` functions in this module's namespace,
-# where the kernel looks its callees up.
-# ---------------------------------------------------------------------------
-
-
-def _hue_shift(r, g, b, hf):
-    """RGB -> HSV, h + hf (floor-mod 1), HSV -> RGB; ties and guards as in
-    the TPU kernel's ``_rgb_to_hsv_kernel`` / ``_hsv_to_rgb_kernel``."""
-    maxc = tl.maximum(tl.maximum(r, g), b)
-    minc = tl.minimum(tl.minimum(r, g), b)
-    delta = maxc - minc
-    safe_delta = tl.where(delta > 0, delta, 1.0)
-    s = tl.where(maxc > 0, delta / tl.where(maxc > 0, maxc, 1.0), 0.0)
-    rc = (maxc - r) / safe_delta
-    gc = (maxc - g) / safe_delta
-    bc = (maxc - b) / safe_delta
-    h = tl.where(maxc == r, bc - gc, tl.where(maxc == g, 2.0 + rc - bc, 4.0 + gc - rc))
-    h = tl.where(delta > 0, h, 0.0)
-    # jnp's float % is a floor-mod (divisor's sign); h can be negative
-    h = h / 6.0
-    h = h - tl.floor(h)
-    h = h + hf
-    h = h - tl.floor(h)
-    fi = tl.floor(h * 6.0)
-    f = h * 6.0 - fi
-    v = maxc
-    p = v * (1.0 - s)
-    q = v * (1.0 - f * s)
-    t = v * (1.0 - (1.0 - f) * s)
-    # integer mod: h * 6 can round to 6.0
-    i = fi.to(tl.int32) % 6
-    r = tl.where((i == 0) | (i == 5), v, tl.where(i == 1, q, tl.where(i == 4, t, p)))
-    g = tl.where((i == 1) | (i == 2), v, tl.where(i == 0, t, tl.where(i == 3, q, p)))
-    b = tl.where((i == 3) | (i == 4), v, tl.where(i == 2, t, tl.where(i == 5, q, p)))
-    return r, g, b
-
-
-def _apply_op(r, g, b, op, bf, cf, hf, mean):
-    """One op slot; ``op`` is uniform across the program, so the branch
-    does not diverge."""
-    if op == 0:
-        r = tl.minimum(tl.maximum(r * bf, 0.0), 1.0)
-        g = tl.minimum(tl.maximum(g * bf, 0.0), 1.0)
-        b = tl.minimum(tl.maximum(b * bf, 0.0), 1.0)
-    elif op == 1:
-        shift = (1.0 - cf) * mean
-        r = tl.minimum(tl.maximum(cf * r + shift, 0.0), 1.0)
-        g = tl.minimum(tl.maximum(cf * g + shift, 0.0), 1.0)
-        b = tl.minimum(tl.maximum(cf * b + shift, 0.0), 1.0)
-    else:
-        r, g, b = _hue_shift(r, g, b, hf)
-    return r, g, b
-
-
-def _load_scaled(ptr, offs, mask, HW):
-    r = tl.load(ptr + offs, mask=mask, other=0.0).to(tl.float32)
-    g = tl.load(ptr + HW + offs, mask=mask, other=0.0).to(tl.float32)
-    b = tl.load(ptr + 2 * HW + offs, mask=mask, other=0.0).to(tl.float32)
-    r = tl.minimum(tl.maximum(r * (1.0 / 255.0), 0.0), 1.0)
-    g = tl.minimum(tl.maximum(g * (1.0 / 255.0), 0.0), 1.0)
-    b = tl.minimum(tl.maximum(b * (1.0 / 255.0), 0.0), 1.0)
-    return r, g, b
-
-
-def _jitter_normalize_kernel(img_ptr, fac_ptr, out_ptr, HW, BLOCK: tl.constexpr):
-    pid = tl.program_id(0).to(tl.int64)
-    img = img_ptr + pid * 3 * HW
-    out = out_ptr + pid * 3 * HW
-    fac = fac_ptr + pid * 8
-    bf = tl.load(fac + 0)
-    cf = tl.load(fac + 1)
-    hf = tl.load(fac + 2)
-    op0 = tl.load(fac + 3).to(tl.int32)
-    op1 = tl.load(fac + 4).to(tl.int32)
-    op2 = tl.load(fac + 5).to(tl.int32)
-    apply = tl.load(fac + 6) > 0.5
-    lanes = tl.arange(0, BLOCK)
-
-    # sweep 1: the image up to its contrast slot, reduced to mean(gray);
-    # zero trips when the jitter is off
-    contrast_slot = tl.where(op0 == 1, 0, tl.where(op1 == 1, 1, 2))
-    acc = tl.zeros([BLOCK], dtype=tl.float32)
-    for start in range(0, tl.where(apply, HW, 0), BLOCK):
-        offs = start + lanes
-        mask = offs < HW
-        r, g, b = _load_scaled(img, offs, mask, HW)
-        if contrast_slot > 0:
-            r, g, b = _apply_op(r, g, b, op0, bf, cf, hf, 0.0)
-        if contrast_slot > 1:
-            r, g, b = _apply_op(r, g, b, op1, bf, cf, hf, 0.0)
-        gray = 0.2989 * r + 0.587 * g + 0.114 * b
-        acc += tl.where(mask, gray, 0.0)
-    mean = tl.sum(acc, axis=0) / HW
-
-    # sweep 2: the whole chain with that mean, normalized and stored
-    for start in range(0, HW, BLOCK):
-        offs = start + lanes
-        mask = offs < HW
-        r, g, b = _load_scaled(img, offs, mask, HW)
-        if apply:
-            r, g, b = _apply_op(r, g, b, op0, bf, cf, hf, mean)
-            r, g, b = _apply_op(r, g, b, op1, bf, cf, hf, mean)
-            r, g, b = _apply_op(r, g, b, op2, bf, cf, hf, mean)
-        dtype = out_ptr.dtype.element_ty
-        tl.store(out + offs, ((r - 0.5) / 0.5).to(dtype), mask=mask)
-        tl.store(out + HW + offs, ((g - 0.5) / 0.5).to(dtype), mask=mask)
-        tl.store(out + 2 * HW + offs, ((b - 0.5) / 0.5).to(dtype), mask=mask)
-
-
-def _build_kernel():
-    """Import Triton and make the kernel, once; Triton compiles it at its
-    first launch into ``build/triton`` of this checkout."""
-    global _KERNEL, tl, _hue_shift, _apply_op, _load_scaled
-    if _KERNEL is None:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        os.environ["TRITON_CACHE_DIR"] = str(_BUILD_DIR)
-        import triton
-        import triton.language as tl
-
-        _hue_shift = triton.jit(_hue_shift)
-        _apply_op = triton.jit(_apply_op)
-        _load_scaled = triton.jit(_load_scaled)
-        _KERNEL = triton.jit(_jitter_normalize_kernel)
-    return _KERNEL

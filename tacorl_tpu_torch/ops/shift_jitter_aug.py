@@ -7,17 +7,19 @@ that reaches it.
 ``fused_shift_jitter_normalize``): per image, an integer shift
 (dy, dx) = factors[:, 7:9] out of an edge-padded image, then the tail of
 ``jitter_normalize``, float32 in and out. The kernel source is
-``tacorl_tpu_torch/csrc/shift_jitter.cu``, built by nvcc for sm_90a into
-``build/cuda`` at its first launch (``ops/_cuda_build.py``).
+``tacorl_tpu_torch/csrc/shift_jitter.cu`` (with the shared
+``csrc/jitter_common.cuh``), built by nvcc for sm_90a into ``build/cuda``
+at its first launch (``ops/_cuda_build.py``).
 
 What bounds it on the H100: bytes. The production entry reads
 (1024, 3, 128, 128) float32 once and writes as much (201.3 MB each way)
-and does a few dozen float32 operations per pixel. Design: one block per
-image keeps the whole shifted image in shared memory, so the contrast
-slot's grayscale mean costs no second read of device memory (the Triton
-``jitter_normalize`` reads its input twice); the shift is the offset of
-the load, and for an unpadded input the edge padding is a clamp of that
-offset, so no padded copy is made.
+and does a few dozen float32 operations per pixel. Design: each image is
+split by bands of output rows over a thread-block cluster
+(``shift_jitter_normalize_geometry``); a CTA copies its band's clamped
+source rows into shared memory once, with 16-byte copies, and the contrast
+slot's grayscale mean is a sum over the cluster, so the image is read from
+device memory once. The shift is an address, and for an unpadded input the
+edge padding is a clamp of it, so no padded copy is made.
 
 ``fused_augment_rgb_train`` is the counterpart of
 ``pallas_augment_rgb_train``: uint8 (..., H, W, 3) -> antialiased
@@ -27,24 +29,74 @@ bilinear resize -> the kernel -> float32 (..., h, w, 3) in [-1, 1].
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 from torch import Tensor
 
 from tacorl_tpu_torch.ops import image_aug
 from tacorl_tpu_torch.ops._cuda_build import load_library
-from tacorl_tpu_torch.ops.jitter_aug import jitter_normalize_reference, sample_jitter_factors
+from tacorl_tpu_torch.ops.jitter_aug import (
+    CHUNK,
+    CLUSTER_SIZES,
+    MAX_SMEM_BYTES,
+    MAX_THREADS,
+    SCRATCH_BYTES,
+    block_shape,
+    pick_cluster,
+    jitter_normalize_reference,
+    raise_on_status,
+    sample_jitter_factors,
+)
 
 __all__ = [
     "shift_jitter_normalize",
     "shift_jitter_normalize_reference",
+    "shift_jitter_normalize_geometry",
     "fused_augment_rgb_train",
 ]
 
-# dynamic shared memory a Hopper block may opt into (227 KB)
-MAX_SMEM_BYTES = 232448
 _N_FACTORS = 10
+
+
+def shift_jitter_normalize_smem_bytes(band_rows: int, in_w: int) -> int:
+    """Dynamic shared memory of one CTA: its band's source rows, 3 planes
+    of float32 (csrc/shift_jitter.cu's function of the same name)."""
+    return 3 * band_rows * in_w * 4
+
+
+def shift_jitter_normalize_geometry(
+    n: int, in_h: int, in_w: int, out_h: int, out_w: int
+) -> Dict[str, int]:
+    """Launch geometry of ``shift_jitter_normalize`` for n images of
+    (in_h, in_w) in and (out_h, out_w) out: each image is one cluster of
+    ``cluster`` CTAs, each CTA a band of ``band_rows`` output rows whose
+    source rows it holds in ``smem_bytes`` of shared memory (dynamic plus
+    the reduction scratch), ``threads`` threads of ``chunks_per_thread`` x 8
+    pixels each; ``grid`` CTAs (``pick_cluster``, with bands that fit a
+    CTA's shared memory). Raises ValueError for an image that 8 CTAs cannot
+    hold."""
+
+    def rows(c: int) -> int:
+        return -(-out_h // c)
+
+    def band_chunks(c: int) -> int:
+        return -(-rows(c) * out_w // CHUNK)
+
+    def smem(c: int) -> int:
+        return shift_jitter_normalize_smem_bytes(rows(c), in_w)
+
+    c = pick_cluster(n, band_chunks, lambda c: smem(c) + SCRATCH_BYTES <= MAX_SMEM_BYTES)
+    if c is None:
+        raise ValueError(
+            f"an output image of {out_h}x{out_w} from {in_h}x{in_w} does not fit one "
+            f"cluster of {CLUSTER_SIZES[-1]} CTAs (shared memory or registers)"
+        )
+    threads, k = block_shape(band_chunks(c))
+    return {
+        "cluster": c, "grid": n * c, "threads": threads, "chunks_per_thread": k,
+        "band_rows": rows(c), "smem_bytes": smem(c) + SCRATCH_BYTES,
+    }
 
 
 def _shifted_indices(shifts: Tensor, size: int, in_size: int, off: int) -> Tensor:
@@ -78,7 +130,7 @@ def shift_jitter_normalize_reference(
     return jitter_normalize_reference(x, f[:, :8])
 
 
-def _check(images: Tensor, factors: Tensor, pad: int, padded: bool) -> Tuple[int, int]:
+def _check(images: Tensor, factors: Tensor, pad: int, padded: bool) -> Dict[str, int]:
     if images.dim() != 4 or images.shape[1] != 3:
         raise ValueError(f"planar (N, 3, H, W) images expected, got {tuple(images.shape)}")
     if images.dtype != torch.float32:
@@ -95,18 +147,15 @@ def _check(images: Tensor, factors: Tensor, pad: int, padded: bool) -> Tuple[int
     out_h, out_w = _out_hw(images, pad, padded)
     if pad < 0 or out_h <= 0 or out_w <= 0:
         raise ValueError(f"pad {pad} does not fit images of shape {tuple(images.shape)}")
-    if (3 * out_h * out_w + 33) * 4 > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"an output image of {out_h}x{out_w} does not fit one block's shared memory"
-        )
-    return out_h, out_w
+    n, _, in_h, in_w = images.shape
+    return shift_jitter_normalize_geometry(n, in_h, in_w, out_h, out_w)
 
 
 def _library():
     lib = load_library("shift_jitter")
     fn = lib.shift_jitter_normalize_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+        fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 10 + [ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return lib
 
@@ -123,21 +172,22 @@ def shift_jitter_normalize(
     A CPU tensor takes the plain version; a CUDA tensor launches the CUDA
     kernel on the current stream, or raises (a failed build or launch is
     never replaced by the plain version)."""
-    out_h, out_w = _check(images, factors, pad, padded)
+    geo = _check(images, factors, pad, padded)
     if images.device.type == "cpu":
         return shift_jitter_normalize_reference(images, factors, pad, padded)
     lib = _library()
     n, _, in_h, in_w = images.shape
+    out_h, out_w = _out_hw(images, pad, padded)
     out = torch.empty((n, 3, out_h, out_w), dtype=torch.float32, device=images.device)
     if n == 0:
         return out
     stream = torch.cuda.current_stream(images.device).cuda_stream
     status = lib.shift_jitter_normalize_launch(
         images.data_ptr(), factors.data_ptr(), out.data_ptr(), n, in_h, in_w,
-        out_h, out_w, 0 if padded else pad, stream,
+        out_h, out_w, 0 if padded else pad, geo["cluster"], geo["threads"],
+        geo["chunks_per_thread"], geo["band_rows"], stream,
     )
-    if status != 0:
-        raise RuntimeError(f"shift_jitter_normalize: kernel launch failed with CUDA error {status}")
+    raise_on_status("shift_jitter_normalize", status)
     shift_jitter_normalize.launches += 1
     return out
 

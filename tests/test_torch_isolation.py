@@ -1,5 +1,5 @@
 """The PyTorch port stands alone: importing every module of
-tacorl_tpu_torch, and chip_smoke.py, pulls in neither JAX (nor flax/optax)
+tacorl_tpu_torch, chip_smoke.py and kernel_ab.py pulls in neither JAX (nor flax/optax)
 nor the JAX package; and its entry points refuse to run without CUDA
 unless the caller asks for the CPU."""
 
@@ -21,6 +21,7 @@ names = [m.name for m in pkgutil.walk_packages(tacorl_tpu_torch.__path__, "tacor
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # not run: main() is under the __main__ check
+import kernel_ab  # nor this one
 print(json.dumps({"imported": names, "loaded": sorted(sys.modules)}))
 """
 
@@ -53,7 +54,7 @@ def probe():
 )
 def test_probe_imported_every_module(probe, name):
     assert name in probe["imported"]
-    assert "chip_smoke" in probe["loaded"]
+    assert "chip_smoke" in probe["loaded"] and "kernel_ab" in probe["loaded"]
 
 
 @pytest.mark.parametrize("forbidden", ["jax", "jaxlib", "flax", "optax", "tacorl_tpu"])
@@ -129,25 +130,42 @@ def _fake_cuda_inputs(kernel):
     return mode, args
 
 
-def test_cuda_kernel_build_raises_without_nvcc(monkeypatch, tmp_path):
+# (library, wrapper module, wrapper) of each CUDA kernel
+KERNELS = [
+    ("shift_jitter", "tacorl_tpu_torch.ops.shift_jitter_aug", "shift_jitter_normalize"),
+    ("jitter_normalize", "tacorl_tpu_torch.ops.jitter_aug", "jitter_normalize"),
+]
+KERNEL_IDS = [k[0] for k in KERNELS]
+
+
+def _wrapper(module, name):
+    import importlib
+
+    mod = importlib.import_module(module)
+    return mod, getattr(mod, name)
+
+
+@pytest.mark.parametrize("library, module, wrapper", KERNELS, ids=KERNEL_IDS)
+def test_cuda_kernel_build_raises_without_nvcc(monkeypatch, tmp_path, library, module, wrapper):
     """Pointed at a compiler that is not there, the build raises, and the
     kernel wrapper handed a CUDA tensor raises with it: no plain fallback."""
     from tacorl_tpu_torch.ops import _cuda_build
-    from tacorl_tpu_torch.ops.shift_jitter_aug import shift_jitter_normalize
 
     monkeypatch.setenv("TACORL_NVCC", str(tmp_path / "no-such-nvcc"))
     monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_cuda_build, "_LOADED", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _cuda_build.load_library("shift_jitter")
-    mode, args = _fake_cuda_inputs("shift_jitter_normalize")
-    before = shift_jitter_normalize.launches
+        _cuda_build.load_library(library)
+    _, fn = _wrapper(module, wrapper)
+    mode, args = _fake_cuda_inputs(wrapper)
+    before = fn.launches
     with mode, pytest.raises(RuntimeError, match="nvcc not found"):
-        shift_jitter_normalize(*args)
-    assert shift_jitter_normalize.launches == before
+        fn(*args)
+    assert fn.launches == before
 
 
-def test_cuda_kernel_build_raises_when_nvcc_fails(monkeypatch, tmp_path):
+@pytest.mark.parametrize("library, module, wrapper", KERNELS, ids=KERNEL_IDS)
+def test_cuda_kernel_build_raises_when_nvcc_fails(monkeypatch, tmp_path, library, module, wrapper):
     """A compiler that exits non-zero (here `false`) fails the build loudly
     and leaves no half-built library behind."""
     from tacorl_tpu_torch.ops import _cuda_build
@@ -156,40 +174,65 @@ def test_cuda_kernel_build_raises_when_nvcc_fails(monkeypatch, tmp_path):
     monkeypatch.setattr(_cuda_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_cuda_build, "_LOADED", {})
     with pytest.raises(RuntimeError, match="nvcc failed to build"):
-        _cuda_build.load_library("shift_jitter")
+        _cuda_build.load_library(library)
     assert not list((tmp_path / "build").iterdir())
 
 
-@pytest.mark.filterwarnings("ignore:Accessing the data pointer of FakeTensor")
-def test_cuda_kernel_launch_failure_raises(monkeypatch):
-    """A launch the card refuses (a non-zero CUDA status) raises and is not
-    counted."""
+def _refusing_library(monkeypatch, module, wrapper, status):
+    """The wrapper's module with a library whose launcher returns ``status``
+    and a current stream that needs no card."""
     from types import SimpleNamespace
 
-    from tacorl_tpu_torch.ops import shift_jitter_aug
-
-    lib = SimpleNamespace(shift_jitter_normalize_launch=lambda *args: 98)  # invalid device function
-    monkeypatch.setattr(shift_jitter_aug, "_library", lambda: lib)
+    mod, fn = _wrapper(module, wrapper)
+    lib = SimpleNamespace(**{f"{wrapper}_launch": lambda *args: status})
+    monkeypatch.setattr(mod, "_library", lambda: lib)
     monkeypatch.setattr(torch.cuda, "current_stream", lambda device=None: SimpleNamespace(cuda_stream=0))
-    mode, args = _fake_cuda_inputs("shift_jitter_normalize")
-    before = shift_jitter_aug.shift_jitter_normalize.launches
+    return fn
+
+
+@pytest.mark.filterwarnings("ignore:Accessing the data pointer of FakeTensor")
+@pytest.mark.parametrize("library, module, wrapper", KERNELS, ids=KERNEL_IDS)
+def test_cuda_kernel_launch_failure_raises(monkeypatch, library, module, wrapper):
+    """A launch the card refuses (a non-zero CUDA status) raises and is not
+    counted."""
+    fn = _refusing_library(monkeypatch, module, wrapper, 98)  # invalid device function
+    mode, args = _fake_cuda_inputs(wrapper)
+    before = fn.launches
     with mode, pytest.raises(RuntimeError, match="CUDA error 98"):
-        shift_jitter_aug.shift_jitter_normalize(*args)
-    assert shift_jitter_aug.shift_jitter_normalize.launches == before
+        fn(*args)
+    assert fn.launches == before
 
 
-def test_triton_kernel_build_failure_raises(monkeypatch):
-    from tacorl_tpu_torch.ops import jitter_aug
+@pytest.mark.filterwarnings("ignore:Accessing the data pointer of FakeTensor")
+@pytest.mark.parametrize("library, module, wrapper", KERNELS, ids=KERNEL_IDS)
+def test_unschedulable_cluster_shape_raises(monkeypatch, library, module, wrapper):
+    """A cluster shape that cudaOccupancyMaxActiveClusters finds no room for
+    (the launcher's -1) raises and is not counted."""
+    fn = _refusing_library(monkeypatch, module, wrapper, -1)
+    mode, args = _fake_cuda_inputs(wrapper)
+    before = fn.launches
+    with mode, pytest.raises(RuntimeError, match="cannot be scheduled"):
+        fn(*args)
+    assert fn.launches == before
 
-    def fail():
-        raise RuntimeError("triton build failed")
 
-    monkeypatch.setattr(jitter_aug, "_build_kernel", fail)
-    mode, args = _fake_cuda_inputs("jitter_normalize")
-    before = jitter_aug.jitter_normalize.launches
-    with mode, pytest.raises(RuntimeError, match="triton build failed"):
-        jitter_aug.jitter_normalize(*args)
-    assert jitter_aug.jitter_normalize.launches == before
+def test_library_name_covers_the_shared_headers(monkeypatch, tmp_path):
+    """An edit to a shared header renames the library that includes it, so
+    a stale build is never loaded; an edit to another source does not."""
+    from tacorl_tpu_torch.ops import _cuda_build
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_cuda_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_cuda_build, "CSRC_DIR", csrc)
+    before = {name: _cuda_build.library_path(name) for name in KERNEL_IDS}
+    header = csrc / "jitter_common.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = {name: _cuda_build.library_path(name) for name in KERNEL_IDS}
+    assert all(before[n] != after[n] for n in KERNEL_IDS)
+    source = csrc / "shift_jitter.cu"
+    source.write_text(source.read_text() + "\n// edited\n")
+    assert _cuda_build.library_path("jitter_normalize") == after["jitter_normalize"]
+    assert _cuda_build.library_path("shift_jitter") != after["shift_jitter"]
 
 
 def test_chip_smoke_fails_without_cuda(capsys):

@@ -1,6 +1,6 @@
 """The port's jitter/normalize tail and resize+shift held against the JAX
 package on the CPU: ``jitter_normalize_reference`` (the plain version the
-Triton kernel is held to on the card) against the Pallas kernel run in
+CUDA kernel is held to on the card) against the Pallas kernel run in
 interpret mode, and ``resize_shift`` against JAX's with JAX-drawn shifts."""
 
 import jax
@@ -57,6 +57,21 @@ def test_reference_matches_pallas_interpret(apply):
     got = jitter_normalize_reference(torch.from_numpy(images), torch.from_numpy(factors))
     assert got.dtype == torch.float32
     # the bar of tests/test_pallas_aug.py
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+# op rows the sampler never draws but both kernels take: contrast in two
+# slots, in all three, in none
+ODD_OP_ROWS = [(1, 1, 2), (1, 1, 1), (0, 2, 2), (2, 1, 1)]
+
+
+@pytest.mark.parametrize("ops", ODD_OP_ROWS, ids=lambda ops: "".join(map(str, ops)))
+def test_reference_any_op_row_matches_pallas_interpret(ops):
+    """Every contrast slot takes the mean of the image as it stands there."""
+    images, factors = _tail_inputs(1.0, seed=3)
+    factors[:, 3:6] = ops
+    want = fused_jitter_normalize(jnp.asarray(images), jnp.asarray(factors), interpret=True)
+    got = jitter_normalize_reference(torch.from_numpy(images), torch.from_numpy(factors))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
 
 

@@ -77,6 +77,21 @@ def test_reference_matches_pallas_interpret(kernel_case):
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5)  # tests/test_pallas_aug.py's bar
 
 
+# op rows the sampler never draws but the kernel takes: contrast in two
+# slots, in all three, in none
+ODD_OP_ROWS = [(1, 1, 2), (1, 1, 1), (0, 2, 2), (2, 1, 1)]
+
+
+@pytest.mark.parametrize("ops", ODD_OP_ROWS, ids=lambda ops: "".join(map(str, ops)))
+def test_reference_any_op_row_matches_pallas_interpret(kernel_case, ops):
+    _, padded, factors, _ = kernel_case
+    factors = factors.copy()
+    factors[:, 3:6] = ops
+    want = fused_shift_jitter_normalize(jnp.asarray(padded), jnp.asarray(factors), PAD, interpret=True)
+    got = shift_jitter_normalize_reference(torch.from_numpy(padded), torch.from_numpy(factors), PAD)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
 def test_unpadded_input_with_clamped_shift_is_the_same(kernel_case):
     images, padded, factors, _ = kernel_case
     f = torch.from_numpy(factors)
