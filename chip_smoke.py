@@ -58,11 +58,32 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 frozen parts bit-unchanged, actor / critics / decoder
                 changed, targets the Polyak average.
  11. profile_tacorl  as phase 8, for the stage-2 step.
+ 12. reference_rollout  at the tiny float32 config, LatentPlanRollout and
+                TACORLRollout episodes on the card and on the CPU from the
+                same weights, env seed, reset infos and draws (one CPU
+                generator): every action within 1e-4, grippers, episode
+                lengths, successes and successful tasks equal.
+ 13. rollout    the production Play-LMP agent (phase 7's config, seed-0
+                weights) through EvaluationManager.evaluate_all_tasks with
+                LatentPlanRollout(plan_duration=15) on FakeCalvinEnv(200x200,
+                "hard" tasks, 60 steps), over an expert-play validation set
+                the port writes (3 rollouts per task): episodes, env steps,
+                ms per decode step (agent + env.step) and per replan, env
+                steps/s, kernel launches per decode step and per replan, the
+                device's busy share over 100 decode steps (torch.profiler),
+                host waits per env step (sync debug mode, also with the
+                interpolation matrices copied each call as before), and 0
+                jitter_normalize launches.
+ 14. rollout_tacorl  the same for the stage-2 module of phase 10, saved and
+                loaded back through the port's CheckpointManager and
+                load_module_from_checkpoint, with TACORLAgent and
+                TACORLRollout.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
 """
 
+import contextlib
 import copy
 import json
 import re
@@ -77,9 +98,15 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-from tacorl_tpu_torch.core.checkpoint import CheckpointManager
+from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
+from tacorl_tpu_torch.data.expert_play import generate_expert_play
+from tacorl_tpu_torch.envs.fake_calvin import FakeCalvinEnv
+from tacorl_tpu_torch.evaluation.agents import make_agent
+from tacorl_tpu_torch.evaluation.manager import EvaluationManager
+from tacorl_tpu_torch.evaluation.rollout_generator import SingleTaskRolloutGenerator
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
 from tacorl_tpu_torch.modules.tacorl import FROZEN, TACORLModule
+from tacorl_tpu_torch.ops import image_aug
 from tacorl_tpu_torch.ops._cuda_build import build_log, library_path, load_library
 from tacorl_tpu_torch.ops.jitter_aug import (
     NUM_SMS,
@@ -810,11 +837,30 @@ def phase_profile(
             flush=True,
         )
     syncs = _host_syncs(run_step)
+    with _uncached_matrices():
+        before = _host_syncs(run_step)
     print(
         f"[{tag}] host waits for the device {sum(syncs.values())} times in one step (torch's sync "
-        f"debug mode), at: " + ("; ".join(f"{n}x {site}" for site, n in syncs.items()) or "-"),
+        f"debug mode), at: {_sites(syncs)} | {sum(before.values())} with the interpolation "
+        f"matrices copied from host memory each call, as before their cache, at: {_sites(before)}",
         flush=True,
     )
+
+
+def _sites(syncs: dict) -> str:
+    return "; ".join(f"{n}x {site}" for site, n in syncs.items()) or "-"
+
+
+@contextlib.contextmanager
+def _uncached_matrices():
+    """The interpolation matrices copied from host memory on every call of
+    ``image_aug._interp``, as before they were cached on the device."""
+    cached = image_aug._interp_on
+    image_aug._interp_on = cached.__wrapped__
+    try:
+        yield
+    finally:
+        image_aug._interp_on = cached
 
 
 def _host_syncs(run_step) -> dict:
@@ -964,7 +1010,8 @@ def phase_slice_tacorl(card: str):
     weights) saved through the port's CheckpointManager and grafted from
     there; the stage-2 config of configs/; a device-resident batch.
     Returns the jitter kernel's launches in the timed steps, the median
-    step time, and a function that runs one more step."""
+    step time, a function that runs one more step, and the module and its
+    state (for rollout_tacorl)."""
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         _save_lmp(PRODUCTION_CFG, tmp, "cuda")
@@ -1025,7 +1072,289 @@ def phase_slice_tacorl(card: str):
         f"Polyak-averaged | jitter_normalize launches {launches} | {card}",
         flush=True,
     )
-    return launches, ms, lambda: step(state, batch, scalars)
+    return launches, ms, lambda: step(state, batch, scalars), (module, state)
+
+
+# ---------------------------------------------------------------------------
+# Stage 3: rollouts (scoring both stages on the fake CALVIN env)
+# ---------------------------------------------------------------------------
+
+ROLLOUT_HW, ROLLOUT_STEPS = 200, 60  # 200x200 frames -> 128x128, as in training
+PLAN_DURATION = 15  # configs/evaluate.yaml
+ROLLOUTS_PER_TASK = 3
+PROFILE_DECODE_STEPS, REPLANS = 100, 20
+ACTION_ATOL = 1e-4
+
+
+class _CpuDraws:
+    """A rollout manager's draw source from one CPU generator: a replan's
+    eps (1, latent) and a decode step's mixture uniforms, the same tensors
+    for the card's run and the CPU's."""
+
+    def __init__(self, latent: int, a: int, k: int, seed: int = 0):
+        self.g = torch.Generator().manual_seed(seed)
+        self.latent, self.a, self.k = latent, a, k
+
+    def __call__(self, call):
+        if call == "propose":
+            return {"eps": torch.randn((1, self.latent), generator=self.g)}
+        lo, hi = 1e-5, 1.0 - 1e-5
+        return {
+            "u_mix": torch.rand((1, 1, self.a, self.k), generator=self.g) * (hi - lo) + lo,
+            "u": torch.rand((1, 1, self.a), generator=self.g) * (hi - lo) + lo,
+        }
+
+
+class _ActionLog:
+    """Forwards an agent's calls, keeps every action it returns and the
+    start time of the latest decode step."""
+
+    def __init__(self, agent):
+        self.agent, self.actions, self.t0 = agent, [], None
+
+    def __getattr__(self, name):  # reset, propose_plan, device, ...
+        return getattr(self.agent, name)
+
+    def decode_step(self, *args):
+        self.t0 = time.perf_counter()
+        action = self.agent.decode_step(*args)
+        self.actions.append(action)
+        return action
+
+
+class _TimedEnv:
+    """Forwards an env; each step records its own time and the time since
+    the decode step that chose its action began (agent plus env.step)."""
+
+    def __init__(self, env, log: _ActionLog):
+        self.env, self.log, self.step_ms, self.env_ms, self.episodes = env, log, [], [], 0
+
+    def __getattr__(self, name):
+        return getattr(self.env, name)
+
+    def reset(self, **kwargs):
+        self.episodes += 1
+        return self.env.reset(**kwargs)
+
+    def step(self, action):
+        t0 = time.perf_counter()
+        out = self.env.step(action)
+        t1 = time.perf_counter()
+        self.env_ms.append((t1 - t0) * 1e3)
+        self.step_ms.append((t1 - self.log.t0) * 1e3)
+        return out
+
+
+def phase_reference_rollout() -> None:
+    """Tiny float32 LatentPlanRollout and TACORLRollout episodes on the card
+    and on the CPU from the same weights, env seed, reset infos and draws."""
+    cfg = _tiny_cfg()
+    latent, k = cfg["latent_plan_dim"], cfg["action_decoder"]["n_mixtures"]
+    resets = ({"task_info": {"task": "open_drawer", "index": 0}},
+              {"task_info": {"task": "lift_block", "index": 2}})
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_lmp(cfg, tmp, "cpu")
+        modules = {}
+        for device in ("cpu", "cuda"):
+            lmp = PlayLMPModule(cfg, device=device)
+            lmp_state = lmp.init_state(0)
+            tacorl = TACORLModule(_tiny_tacorl_cfg(tmp), device=device)
+            tacorl_state = tacorl.init_state(0)
+            if modules:  # the card's run takes the CPU's weights
+                lmp.net.load_state_dict(modules["cpu"][0].net.state_dict())
+                tacorl.net.load_state_dict(modules["cpu"][1].net.state_dict())
+            modules[device] = (lmp, tacorl)
+            for name, module, state in (("lmp", lmp, lmp_state), ("tacorl", tacorl, tacorl_state)):
+                agent, manager_cls = make_agent(module, state)
+                log = _ActionLog(agent)
+                # 6 continuous action columns beside the gripper
+                manager = manager_cls(plan_duration=5, draw_source=_CpuDraws(latent, 6, k))
+                env = FakeCalvinEnv(image_hw=64, max_episode_steps=30, seed=0)
+                outs = [manager.episode_rollout(log, env, r) for r in resets]
+                results[(name, device)] = (outs, np.stack(log.actions))
+    worst = {}
+    for name in ("lmp", "tacorl"):
+        (outs_cpu, acts_cpu), (outs_card, acts_card) = results[(name, "cpu")], results[(name, "cuda")]
+        _check(acts_card.shape == acts_cpu.shape, f"reference_rollout {name}: {acts_card.shape} vs {acts_cpu.shape} actions")
+        worst[name] = float(np.abs(acts_card[:, :-1] - acts_cpu[:, :-1]).max())
+        _check(worst[name] <= ACTION_ATOL, f"reference_rollout {name}: max action error {worst[name]}")
+        _check(np.array_equal(acts_card[:, -1], acts_cpu[:, -1]), f"reference_rollout {name}: grippers differ")
+        for key in ("episode_length", "success", "successful_tasks"):
+            _check([o[key] for o in outs_card] == [o[key] for o in outs_cpu],
+                   f"reference_rollout {name}: {key} differs")
+    print(
+        "[reference_rollout] tiny float32 rollouts, card vs CPU, same weights, env seed, resets and "
+        f"draws: LatentPlanRollout {len(results[('lmp', 'cpu')][1])} actions, max abs err "
+        f"{worst['lmp']:.3g}; TACORLRollout {len(results[('tacorl', 'cpu')][1])} actions, max abs err "
+        f"{worst['tacorl']:.3g} (atol {ACTION_ATOL}); grippers, episode lengths, successes and "
+        "successful tasks equal",
+        flush=True,
+    )
+
+
+def _expert_validation(root) -> str:
+    """An expert-play validation set of 200x200 frames with at least
+    ROLLOUTS_PER_TASK verified single-task spans for each "hard" task."""
+    generate_expert_play(root, n_train_episodes=0, n_val_episodes=6, image_hw=ROLLOUT_HW, seed=0)
+    return f"{root}/validation"
+
+
+def _kernel_counts(events, steps: int):
+    """Kernels (launches), copies and device ms per step in a profile."""
+    from torch.autograd import DeviceType
+
+    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+    device = [e for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges]
+    copies = [e for e in device if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in device if e not in copies]
+    return (
+        sum(e.count for e in kernels) / steps,
+        sum(e.count for e in copies) / steps,
+        sum(e.device_time_total for e in device) / 1e3 / steps,
+    )
+
+
+def _rollout_waits(agent, reset, uncached: bool):
+    """Host waits (by call site) and actions of one replan and PLAN_DURATION
+    decode steps, env steps included; ``uncached`` copies the interpolation
+    matrices from host memory on every call, as before their cache."""
+    env = FakeCalvinEnv(image_hw=ROLLOUT_HW, task_set="hard", max_episode_steps=10**6)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    actions = []
+
+    def run():
+        obs = env.reset(**reset)
+        plan = agent.propose_plan(obs, None, gen)
+        for _ in range(PLAN_DURATION):
+            actions.append(agent.decode_step(obs, plan, None, gen))
+            obs = env.step(actions[-1])[0]
+
+    with _uncached_matrices() if uncached else contextlib.nullcontext():
+        return _host_syncs(run), np.stack(actions)
+
+
+def _measure_rollout(tag: str, card: str, module, state, data_dir: str) -> dict:
+    """evaluate_all_tasks with the module's agent and rollout manager on
+    200x200 frames, then the profile, replan and sync-debug measurements."""
+    from torch.profiler import ProfilerActivity, profile
+
+    agent, manager_cls = make_agent(module, state)
+    gen = SingleTaskRolloutGenerator(
+        data_dir=data_dir, start_end_tasks=f"{data_dir}/start_end_tasks.json",
+        min_seq_len=1, max_seq_len=400,
+    )
+    tasks = gen.get_rollout_tasks()
+    _check(len(tasks) == 4 and all(len(v) >= ROLLOUTS_PER_TASK for v in tasks.values()),
+           f"{tag}: validation set spans {({t: len(v) for t, v in tasks.items()})}")
+    log = _ActionLog(agent)
+    env = _TimedEnv(
+        FakeCalvinEnv(image_hw=ROLLOUT_HW, task_set="hard", max_episode_steps=ROLLOUT_STEPS), log
+    )
+    evaluation = EvaluationManager(
+        agent=log, env=env, rollout_manager=manager_cls(plan_duration=PLAN_DURATION),
+        single_task_generator=gen,
+    )
+    with tempfile.TemporaryDirectory() as tmp:
+        jitter_normalize.launches = 0
+        shift_jitter_normalize.launches = 0
+        t0 = time.perf_counter()
+        results = evaluation.evaluate_all_tasks(f"{tmp}/all_tasks.json", ROLLOUTS_PER_TASK)
+        wall = time.perf_counter() - t0
+        launches = {"jitter_normalize": jitter_normalize.launches,
+                    "shift_jitter_normalize": shift_jitter_normalize.launches}
+        _check(json.loads(open(f"{tmp}/all_tasks.json").read()) == results, f"{tag}: results file")
+    _check(launches["jitter_normalize"] == 0, f"{tag}: jitter_normalize launched {launches}")
+    _check(sorted(results) == sorted(tasks) and all(
+        r["num_rollouts"] == ROLLOUTS_PER_TASK and np.isfinite(r["avg_episode_return"])
+        and 0.0 <= r["accuracy"] <= 1.0 for r in results.values()), f"{tag}: results {results}")
+    steps = len(env.step_ms)
+    _check(steps == sum(r["avg_episode_length"] * r["num_rollouts"] for r in results.values()),
+           f"{tag}: env steps")
+    acts = np.stack(log.actions)
+    _check(bool(np.isfinite(acts).all()) and acts.shape == (steps, 7), f"{tag}: actions")
+    step_ms = statistics.median(env.step_ms)
+
+    # replans: each call and the device work it queues
+    reset = gen.get_reset_info(next(iter(tasks)), 0)
+    obs = env.env.reset(**reset)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    replan_ms = []
+    for _ in range(REPLANS):
+        t0 = time.perf_counter()
+        plan = agent.propose_plan(obs, None, g)
+        torch.cuda.synchronize()
+        replan_ms.append((time.perf_counter() - t0) * 1e3)
+    replan = statistics.median(replan_ms[2:])
+
+    # the profile: 100 decode steps (agent + env.step), then 10 replans
+    prof_env = FakeCalvinEnv(image_hw=ROLLOUT_HW, task_set="hard", max_episode_steps=10**6)
+    obs = prof_env.reset(**reset)
+    plan = agent.propose_plan(obs, None, g)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(PROFILE_DECODE_STEPS):
+            obs = prof_env.step(agent.decode_step(obs, plan, None, g))[0]
+        torch.cuda.synchronize()
+    per_decode, copies_decode, device_ms = _kernel_counts(prof.key_averages(), PROFILE_DECODE_STEPS)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            agent.propose_plan(obs, None, g)
+        torch.cuda.synchronize()
+    per_replan, copies_replan, replan_device_ms = _kernel_counts(prof.key_averages(), 10)
+
+    waits, actions = _rollout_waits(agent, reset, uncached=False)
+    waits_before, actions_before = _rollout_waits(agent, reset, uncached=True)
+    same = float(np.abs(actions - actions_before).max())
+    _check(same == 0.0, f"{tag}: actions with and without the matrix cache differ by {same}")
+    print(
+        f"[{tag}] evaluate_all_tasks, {type(agent).__name__} + {manager_cls.__name__}"
+        f"(plan_duration={PLAN_DURATION}), FakeCalvinEnv {ROLLOUT_HW}x{ROLLOUT_HW} hard, "
+        f"{ROLLOUT_STEPS} steps: {env.episodes} episodes, {steps} env steps in {wall:.3f} s "
+        f"({steps / wall:.1f} env steps/s), accuracy "
+        + ", ".join(f"{t} {r['accuracy']:.2f}" for t, r in results.items())
+        + f" | decode step (agent + env.step) median {step_ms:.3f} ms over {steps}, of it "
+        f"env.step {statistics.median(env.env_ms):.3f} ms; replan "
+        f"(propose + sync) median {replan:.3f} ms | jitter_normalize launches "
+        f"{launches['jitter_normalize']}, shift_jitter_normalize {launches['shift_jitter_normalize']} | {card}",
+        flush=True,
+    )
+    print(
+        f"[{tag}] profile: {per_decode:.1f} kernels and {copies_decode:.1f} copies per decode step, "
+        f"device {device_ms:.3f} ms per decode step over {PROFILE_DECODE_STEPS} (busy "
+        f"{device_ms / step_ms:.1%} of the {step_ms:.3f} ms step, idle {1 - device_ms / step_ms:.1%}); "
+        f"{per_replan:.1f} kernels and {copies_replan:.1f} copies per replan, device "
+        f"{replan_device_ms:.3f} ms per replan",
+        flush=True,
+    )
+    for name, w in (("now", waits), ("with the matrices copied each call", waits_before)):
+        print(
+            f"[{tag}] host waits ({name}) in one replan + {PLAN_DURATION} env steps: "
+            f"{sum(w.values())} ({sum(w.values()) / PLAN_DURATION:.2f} per env step), at: {_sites(w)}",
+            flush=True,
+        )
+    return launches
+
+
+def phase_rollout(card: str, data_dir: str) -> dict:
+    """The production Play-LMP agent (PRODUCTION_CFG, seed-0 weights)."""
+    module = PlayLMPModule(PRODUCTION_CFG, device="cuda")
+    return _measure_rollout("rollout", card, module, module.init_state(0), data_dir)
+
+
+def phase_rollout_tacorl(card: str, data_dir: str, trained, trained_state) -> dict:
+    """The stage-2 module of phase 10, saved and loaded back through the
+    port's CheckpointManager and load_module_from_checkpoint."""
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_lmp(PRODUCTION_CFG, f"{tmp}/lmp", "cuda")  # phase 10's stage 1: seed 0
+        cfg = {**TACORL_CFG, "play_lmp_dir": f"{tmp}/lmp"}
+        CheckpointManager(f"{tmp}/tacorl", config={"module": cfg}).save(trained_state.step, trained_state)
+        module, state = load_module_from_checkpoint(f"{tmp}/tacorl", device="cuda")
+    want = trained.net.state_dict()
+    got = state.net.state_dict()
+    _check(type(module) is TACORLModule and state.step == trained_state.step
+           and all(torch.equal(got[k], v) for k, v in want.items()), "rollout_tacorl: reload")
+    return _measure_rollout("rollout_tacorl", card, module, state, data_dir)
 
 
 def main() -> int:
@@ -1043,13 +1372,26 @@ def main() -> int:
     del run_step
     torch.cuda.empty_cache()
     phase_reference_tacorl()
-    launches_tacorl, tacorl_ms, run_tacorl = phase_slice_tacorl(card)
+    launches_tacorl, tacorl_ms, run_tacorl, trained = phase_slice_tacorl(card)
     phase_profile(
         run_tacorl, tacorl_ms, tag="profile_tacorl", stages=("tacorl/", "cql/")
     )
+    del run_tacorl
+    phase_reference_rollout()
+    with tempfile.TemporaryDirectory() as tmp:
+        data_dir = _expert_validation(tmp)
+        rollout = phase_rollout(card, data_dir)
+        torch.cuda.empty_cache()
+        rollout_tacorl = phase_rollout_tacorl(card, data_dir, *trained)
     kernel["launches"] = launches_tacorl
-    kernel["launches_by_path"] = {"slice": launches_lmp, "slice_tacorl": launches_tacorl}
-    shift["launches_by_path"] = {"augment": shift["launches"]}
+    kernel["launches_by_path"] = {
+        "slice": launches_lmp, "slice_tacorl": launches_tacorl,
+        "rollout": rollout["jitter_normalize"], "rollout_tacorl": rollout_tacorl["jitter_normalize"],
+    }
+    shift["launches_by_path"] = {
+        "augment": shift["launches"], "rollout": rollout["shift_jitter_normalize"],
+        "rollout_tacorl": rollout_tacorl["shift_jitter_normalize"],
+    }
     print(json.dumps({"kernels": [kernel, shift]}))
     print(card)
     print(json.dumps({

@@ -1,0 +1,179 @@
+"""Policy agents (port of tacorl_tpu/evaluation/agents.py): the bridge
+between trained modules and host-side env stepping.
+
+Each agent takes ``(module, state)`` and acts with ``state.net`` in eval
+mode under ``torch.inference_mode()``. Observations arrive as single-env
+numpy dicts and go to the module's device as a batch of 1 (through pinned
+memory on a card, so the upload does not make the host wait); the decoder
+carry stays on the device, opaque, and is cleared on replan. An agent
+returns a numpy action: that one device-to-host copy per env step is the
+only host wait of the loop.
+
+Randomness: every call takes ``draws`` (explicit random inputs, as the
+module functions take them) and the rollout manager's ``generator``, from
+which whatever is missing is drawn.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn as nn
+
+from tacorl_tpu_torch.utils import resolve_device
+
+__all__ = [
+    "FlatPolicyAgent",
+    "LatentPlanAgent",
+    "TACORLAgent",
+    "ScriptedExpertAgent",
+    "make_agent",
+]
+
+
+def make_agent(module, state, use_cem: bool = False, cem_cfg: dict = None):
+    """Agent and rollout-manager class by module family."""
+    from tacorl_tpu_torch.evaluation import rollout_manager as rm
+
+    name = module.name
+    if name in ("cql", "sac", "cql_online"):
+        return FlatPolicyAgent(module, state, use_cem, cem_cfg), rm.RLRollout
+    if name == "tacorl":
+        return TACORLAgent(module, state, use_cem, cem_cfg), rm.TACORLRollout
+    if name == "play_lmp":
+        return LatentPlanAgent(module, state), rm.LatentPlanRollout
+    if name == "ril":
+        raise NotImplementedError("RILAgent is not ported yet (ROADMAP Queue 1, item 11)")
+    raise ValueError(f"no agent mapping for module {name!r}")
+
+
+def _no_cem(use_cem: bool) -> None:
+    if use_cem:
+        raise NotImplementedError(
+            "CEM refinement (modules/cem.py) is not ported yet (ROADMAP Queue 1, item 13)"
+        )
+
+
+class _ModuleAgent:
+    """Shared plumbing: the net in eval mode with contiguous RNN weights,
+    uploads of observations and draws, the action's download."""
+
+    def __init__(self, module, state):
+        self.module = module
+        self.device = resolve_device(module.device)
+        self.net = state.net
+        self.net.eval()
+        # a deep-copied or moved nn.RNN holds its weights apart; cuDNN would
+        # copy them into one buffer on every step
+        for m in self.net.modules():
+            if isinstance(m, nn.RNNBase):
+                m.flatten_parameters()
+        self.carry = None
+
+    def reset(self) -> None:
+        self.net.eval()
+        self.carry = None
+
+    def _batched(self, obs: Any) -> Any:
+        """A numpy observation (dict) as a batch of 1 on the device."""
+        if isinstance(obs, dict):
+            return {k: self._batched(v) for k, v in obs.items()}
+        x = torch.from_numpy(np.ascontiguousarray(obs)[None])
+        if self.device.type == "cuda":
+            return x.pin_memory().to(self.device, non_blocking=True)
+        return x
+
+    def _draws(self, draws: Optional[Dict]) -> Optional[Dict]:
+        if draws is None:
+            return None
+        return {k: torch.as_tensor(v).to(self.device) for k, v in draws.items()}
+
+    @staticmethod
+    def _action(action: torch.Tensor) -> np.ndarray:
+        return action[0].cpu().numpy()
+
+
+class FlatPolicyAgent(_ModuleAgent):
+    """Deterministic flat policy (reference RLRollout, rollout_manager.py:
+    81-180). CEM refinement waits for ROADMAP item 13."""
+
+    def __init__(self, module, state, use_cem: bool = False, cem_cfg: dict = None):
+        _no_cem(use_cem)
+        super().__init__(module, state)
+        self._policy = module.make_policy_fn(deterministic=True)
+
+    @torch.inference_mode()
+    def act(self, obs: Dict, draws=None, generator=None) -> np.ndarray:
+        action = self._policy(self.net, self._batched(obs), self._draws(draws), generator)
+        return self._action(action)
+
+
+class LatentPlanAgent(_ModuleAgent):
+    """Play-LMP rollout policy (LatentPlanRollout, rollout_manager.py:
+    183-307): sample a plan from the proposal prior (``draws["eps"]``, the
+    standard normal), stream the decoder for plan_duration steps
+    (``draws["u_mix"]``, ``draws["u"]``), replan."""
+
+    @torch.inference_mode()
+    def propose_plan(self, obs: Dict, draws=None, generator=None) -> torch.Tensor:
+        transforms = self.module.transforms
+        obs_t = transforms(self._batched(obs["observation"]), train=False)
+        goal_t = transforms(self._batched(obs["goal"]), train=False)
+        self.carry = None  # clear_hidden_state (:250)
+        eps = (self._draws(draws) or {}).get("eps")
+        return self.net.propose_plan(obs_t, goal_t).sample(generator, eps=eps)
+
+    @torch.inference_mode()
+    def decode_step(self, obs: Dict, plan, draws=None, generator=None) -> np.ndarray:
+        obs_t = self.module.transforms(self._batched(obs["observation"]), train=False)
+        action, self.carry = self.net.decode_action(
+            plan, obs_t, self.carry, draws=self._draws(draws), generator=generator
+        )
+        return self._action(action)
+
+
+class TACORLAgent(_ModuleAgent):
+    """TACO-RL rollout policy (rollout_manager.py:310-431): the RL actor
+    emits a deterministic latent plan, the LMP decoder streams actions. CEM
+    refinement waits for ROADMAP item 13."""
+
+    def __init__(self, module, state, use_cem: bool = False, cem_cfg: dict = None):
+        _no_cem(use_cem)
+        super().__init__(module, state)
+        self._propose, self._decode = module.make_plan_and_decode_fns()
+
+    @torch.inference_mode()
+    def propose_plan(self, obs: Dict, draws=None, generator=None) -> torch.Tensor:
+        plan = self._propose(self.net, self._batched(obs), self._draws(draws), generator)
+        self.carry = None
+        return plan
+
+    @torch.inference_mode()
+    def decode_step(self, obs: Dict, plan, draws=None, generator=None) -> np.ndarray:
+        action, self.carry = self._decode(
+            self.net, plan, self._batched(obs["observation"]), self.carry,
+            self._draws(draws), generator,
+        )
+        return self._action(action)
+
+
+class ScriptedExpertAgent:
+    """Protocol-ceiling probe: drives the fake env's scripted expert through
+    the same rollout managers and evaluation protocols learned policies use,
+    so it measures what the protocol itself permits (compounding resets,
+    goal diffing, step budgets) independent of any learned policy.
+
+    Host-side only: ``act`` ignores the draws and asks the env for its
+    expert action, so it plugs into ``RLRollout`` unchanged."""
+
+    def __init__(self, env, gain: float = 1.0):
+        self.env = env
+        self.gain = gain
+
+    def reset(self) -> None:
+        pass
+
+    def act(self, obs: Dict, draws=None, generator=None) -> np.ndarray:
+        return self.env.expert_action(gain=self.gain)

@@ -455,3 +455,20 @@ class CQLModule(AlgorithmModule):
             return metrics, {}
 
         return val_step
+
+    # -- rollout-time policy ------------------------------------------------------
+
+    def make_policy_fn(self, deterministic: bool = True):
+        """``policy(net, obs, draws=None, generator=None)``: the evaluation
+        transforms, then the actor's ``get_actions`` (deterministic by
+        default: nothing is drawn)."""
+        transforms = self.transforms
+
+        def policy(net, obs, draws=None, generator=None):
+            obs_t = transforms(obs, train=False)
+            actions, _ = net.actor.get_actions(
+                obs_t, draws, deterministic=deterministic, generator=generator
+            )
+            return actions
+
+        return policy

@@ -167,6 +167,40 @@ class PlayLMPNet(nn.Module):
         }
         return total, metrics
 
+    # -- rollout-time interfaces (used by the evaluation agents) -----------
+
+    def encode_frame(self, obs: Dict[str, Tensor], modalities) -> Tensor:
+        return self.perceptual_encoder.encode(obs, tuple(modalities), cat_output=True)
+
+    def propose_plan(self, obs: Dict[str, Tensor], goal: Dict[str, Tensor]) -> TanhNormal:
+        """The plan-proposal prior over latent plans from the current
+        observation and the goal image."""
+        pp_state = self.encode_frame(obs, self.pp_obs_modalities)
+        pp_goal = self.goal_encoder(self.encode_frame(goal, self.pp_goal_modalities))
+        return self.plan_proposal.get_dist(pp_state, pp_goal)
+
+    def recognize_plan(self, states: Dict[str, Tensor]):
+        emb = self.get_emb_states(states)
+        return self.plan_recognition(torch.cat([emb[m] for m in self.pr_modalities], dim=-1))
+
+    def decode_action(
+        self,
+        latent_plan: Tensor,
+        obs: Dict[str, Tensor],
+        carry: Optional[Tensor],
+        latent_goal: Optional[Tensor] = None,
+        draws: Optional[Dict[str, Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        """One streaming decoder step: encode the frame, run one RNN step
+        (``ActionDecoderLogistic.act``); returns (actions (B, A + 1),
+        carry)."""
+        emb = self.encode_frame(obs, self.ad_modalities)
+        action, carry = self.action_decoder.act(
+            latent_plan, emb[:, None], latent_goal, carry, draws, generator
+        )
+        return action[:, 0], carry
+
 
 class PlayLMPModule(AlgorithmModule):
     name = "play_lmp"

@@ -20,8 +20,9 @@ for the window and the goal; JAX keys k_aug and fold_in(k_aug, 1)) and
 ``plan_eps``, the posterior's (B, latent_plan_dim) standard normal (k_plan).
 The plan-space actor has no gripper, so its draws are ``eps`` only.
 
-The rollout helpers (``make_plan_and_decode_fns``) wait for the decoder's
-streaming ``act``.
+The rollout helpers (``make_plan_and_decode_fns``): the actor emits a
+deterministic latent plan, the (finetuned) decoder streams actions over the
+frozen perceptual encoder's frame embedding.
 """
 
 from __future__ import annotations
@@ -221,3 +222,29 @@ class TACORLModule(CQLModule):
         )
         metrics.update(cql_metrics)
         return state, metrics
+
+    # -- rollout support --------------------------------------------------------------
+
+    def make_plan_and_decode_fns(self):
+        """Rollout helpers: ``propose(net, obs, draws=None, generator=None)``,
+        the actor's deterministic plan for an {"observation", "goal"} dict
+        (it draws nothing), and ``decode(net, latent_plan, obs, carry,
+        draws=None, generator=None)``, one streaming step of the decoder
+        over the frozen ``perceptual_encoder``'s embedding of the frame;
+        returns (actions (B, A + 1), carry)."""
+        transforms, ad_mods = self.transforms, self.lmp.ad_mods
+
+        def propose(net, obs, draws=None, generator=None):
+            plan, _ = net.actor.get_actions(
+                transforms(obs, train=False), draws, deterministic=True, generator=generator
+            )
+            return plan
+
+        def decode(net, latent_plan, obs, carry, draws=None, generator=None):
+            emb = net.perceptual_encoder.encode(transforms(obs, train=False), ad_mods)
+            action, carry = net.action_decoder.act(
+                latent_plan, emb[:, None], None, carry, draws, generator
+            )
+            return action[:, 0], carry
+
+        return propose, decode

@@ -1,23 +1,33 @@
 """Logistic-mixture action decoder (port of ``StackedRNN`` in "rnn" mode
 and ``ActionDecoderLogistic`` of tacorl_tpu/networks/action_decoder.py).
 state_dict keys follow the reference: ``rnn.{weight,bias}_{ih,hh}_l{i}``,
-``mean_fc``, ``log_scale_fc``, ``prob_fc``, ``gripper_fc``."""
+``mean_fc``, ``log_scale_fc``, ``prob_fc``, ``gripper_fc``.
+
+The streaming rollout path (``act``) carries the RNN state explicitly, as
+the JAX package does; the carry is ``nn.RNN``'s hidden state,
+(num_layers, B, H), where the JAX carry is a tuple of per-layer (B, H).
+"""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
-from tacorl_tpu_torch.core.distributions import logistic_mixture_log_prob
+from tacorl_tpu_torch.core.distributions import (
+    logistic_mixture_log_prob,
+    logistic_mixture_sample,
+)
 from tacorl_tpu_torch.networks.layers import TorchDense
 
 LOG_SIG_MIN = -5.0
 LOG_SIG_MAX = 2.0
+# the interval the JAX sampler draws the mixture uniforms on
+_U_MIN, _U_MAX = 1e-5, 1.0 - 1e-5
 
 __all__ = ["StackedRNN", "ActionDecoderLogistic"]
 
@@ -205,3 +215,43 @@ class ActionDecoderLogistic(nn.Module):
         pred_gripper = self.gripper_bounds[torch.argmax(gripper_logits, dim=-1)]
         loss = self._loss(logit_probs, log_scales, means, gripper_logits, actions)
         return loss, pred_gripper
+
+    def act(
+        self,
+        latent_plan: Tensor,
+        perceptual_emb: Tensor,
+        latent_goal: Optional[Tensor] = None,
+        carry: Optional[Tensor] = None,
+        draws: Optional[Dict[str, Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tuple[Tensor, Tensor]:
+        """Streaming action sampling with an explicit RNN carry (None
+        starts from zeros): returns (actions (B, T, A + 1), carry).
+        ``draws`` may hold ``u_mix`` (B, T, A, K), the uniforms of the
+        Gumbel-max component choice, and ``u`` (B, T, A), those of the
+        logistic inversion; what is missing is drawn from ``generator`` on
+        [1e-5, 1 - 1e-5), the JAX sampler's interval."""
+        logit_probs, log_scales, means, gripper_logits, carry = self(
+            latent_plan, perceptual_emb, latent_goal, carry
+        )
+        return self._sample(logit_probs, log_scales, means, gripper_logits, draws, generator), carry
+
+    def _sample(
+        self, logit_probs, log_scales, means, gripper_logits, draws=None, generator=None
+    ) -> Tensor:
+        """A mixture sample of the continuous columns and the gripper column
+        ``gripper_bounds[argmax(gripper_logits)]``."""
+        draws = draws or {}
+        u_mix, u = draws.get("u_mix"), draws.get("u")
+        if u_mix is None:
+            u_mix = _uniform(means.shape, means, generator)
+        if u is None:
+            u = _uniform(means.shape[:-1], means, generator)
+        actions = logistic_mixture_sample(logit_probs, means, log_scales, u_mix, u)
+        grip = self.gripper_bounds[torch.argmax(gripper_logits, dim=-1)]
+        return torch.cat([actions, grip[..., None]], dim=-1)
+
+
+def _uniform(shape, like: Tensor, generator: Optional[torch.Generator]) -> Tensor:
+    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    return u * (_U_MAX - _U_MIN) + _U_MIN

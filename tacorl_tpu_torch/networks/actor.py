@@ -108,13 +108,23 @@ class Actor(nn.Module):
         draws: Optional[Dict[str, Tensor]] = None,
         reparameterize: bool = False,
         generator: Optional[torch.Generator] = None,
+        deterministic: bool = False,
     ) -> Tuple[Tensor, Tensor]:
-        """Returns sampled (actions, log_pi (..., 1)), the JAX
-        ``get_actions`` branch for branch: ``reparameterize`` lets gradients
-        flow through the sample, otherwise only the log-density carries
-        them. (The deterministic branch waits for the rollout policies.)"""
-        draws = draws or {}
+        """Returns (actions, log_pi), the JAX ``get_actions`` branch for
+        branch. ``deterministic`` (the rollout policies) takes ``tanh(mean)``
+        and, with a gripper, ``argmax(gripper logits) * 2 - 1``, draws
+        nothing and returns a zero log-prob of the actions' shape.
+        Otherwise the actions are sampled and log_pi is (..., 1):
+        ``reparameterize`` lets gradients flow through the sample, else only
+        the log-density carries them."""
         out = self(obs_emb)
+        if deterministic:
+            actions = torch.tanh(out[0])
+            if self.discrete_gripper:
+                grip = torch.argmax(out[2], dim=-1)[..., None].to(actions.dtype) * 2.0 - 1.0
+                actions = torch.cat([actions, grip], dim=-1)
+            return actions, torch.zeros_like(actions)
+        draws = draws or {}
         dist = TanhNormal(out[0], out[1])
         if reparameterize:
             actions, log_pi = dist.sample_and_log_prob(generator, eps=draws.get("eps"))

@@ -4,9 +4,9 @@ modalities through a LateFusion encoder (and the goal through an optional
 goal encoder), concatenate, delegate. state_dict keys follow the
 reference: ``encoder.networks.<modality>.*``, ``goal_encoder.mlp.*``, then
 ``actor.policy.*`` or ``critic.Q.*``. The CQL step calls the actor's
-samplers on the embedding (``networks/actor.py``), so the actor wrapper
-keeps only the embedding; the VIB distribution (``get_vib_distribution``)
-waits for the VIB encoder head."""
+samplers on the embedding (``networks/actor.py``); the rollout policies call
+the wrapper's ``get_actions``. The VIB distribution
+(``get_vib_distribution``) waits for the VIB encoder head."""
 
 from __future__ import annotations
 
@@ -55,6 +55,19 @@ class VisualActorWrapper(_VisualWrapperBase):
     def __init__(self, encoder, goal_encoder, env_modalities, goal_modalities, actor: Actor):
         super().__init__(encoder, goal_encoder, env_modalities, goal_modalities)
         self.actor = actor
+
+    def get_actions(
+        self,
+        obs: Obs,
+        draws: Optional[Dict[str, Tensor]] = None,
+        deterministic: bool = False,
+        reparameterize: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ):
+        """The actor's ``get_actions`` on the observation's embedding."""
+        return self.actor.get_actions(
+            self.get_emb_representation(obs), draws, reparameterize, generator, deterministic
+        )
 
 
 class VisualCriticWrapper(_VisualWrapperBase):

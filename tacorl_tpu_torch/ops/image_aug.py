@@ -9,6 +9,7 @@ kernel), so ``torch.einsum`` is their counterpart here.
 
 from __future__ import annotations
 
+import functools
 from typing import Sequence, Tuple
 
 import numpy as np
@@ -48,9 +49,18 @@ def _interp_matrix(in_size: int, out_size: int) -> np.ndarray:
 
 
 def _interp(in_size: int, out_size: int, like: Tensor, dtype) -> Tensor:
-    return torch.as_tensor(
-        _interp_matrix(in_size, out_size), device=like.device
-    ).to(dtype)
+    return _interp_on(in_size, out_size, dtype, like.device)
+
+
+@functools.lru_cache(maxsize=None)
+def _interp_on(in_size: int, out_size: int, dtype, device: torch.device) -> Tensor:
+    """The interpolation matrix in ``dtype`` on ``device``, made once per
+    (in, out, dtype, device): a copy from host memory makes the host wait
+    for the device, so no call after the first copies it again. Callers
+    share it and only read it. Made outside inference mode, so a matrix
+    first made during a rollout serves the train steps as well."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_interp_matrix(in_size, out_size), device=device).to(dtype)
 
 
 def resize_bilinear(

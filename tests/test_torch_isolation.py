@@ -1,7 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 tacorl_tpu_torch, chip_smoke.py and kernel_ab.py pulls in neither JAX (nor flax/optax)
-nor the JAX package; and its entry points refuse to run without CUDA
-unless the caller asks for the CPU."""
+nor the JAX package; and its entry points (modules, agents,
+``python -m tacorl_tpu_torch.evaluate``) refuse to run without CUDA unless
+the caller asks for the CPU."""
 
 import json
 import shutil
@@ -50,6 +51,17 @@ def probe():
         "tacorl_tpu_torch.core.checkpoint",
         "tacorl_tpu_torch.core.optimizers",
         "tacorl_tpu_torch.utils.convert",
+        "tacorl_tpu_torch.config",
+        "tacorl_tpu_torch.envs.base",
+        "tacorl_tpu_torch.envs.fake_calvin",
+        "tacorl_tpu_torch.data.storage",
+        "tacorl_tpu_torch.data.expert_play",
+        "tacorl_tpu_torch.evaluation.agents",
+        "tacorl_tpu_torch.evaluation.rollout_manager",
+        "tacorl_tpu_torch.evaluation.rollout_generator",
+        "tacorl_tpu_torch.evaluation.manager",
+        "tacorl_tpu_torch.evaluation.video",
+        "tacorl_tpu_torch.evaluate",
     ],
 )
 def test_probe_imported_every_module(probe, name):
@@ -88,21 +100,23 @@ def _cql_cfg():
 @pytest.mark.parametrize(
     "entry",
     ["resolve_device", "DeviceTransforms", "PlayLMPModule", "CQLModule", "TACORLModule",
-     "load_module_from_checkpoint"],
+     "load_module_from_checkpoint", "LatentPlanAgent", "TACORLAgent", "FlatPolicyAgent",
+     "make_agent", "evaluate.main"],
 )
 def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     _no_cuda()
+    from tacorl_tpu_torch import evaluate
     from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
     from tacorl_tpu_torch.data.transforms import DeviceTransforms
+    from tacorl_tpu_torch.evaluation import agents
     from tacorl_tpu_torch.modules.cql import CQLModule
     from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
     from tacorl_tpu_torch.modules.tacorl import TACORLModule
     from tacorl_tpu_torch.utils import resolve_device
 
-    if entry in ("TACORLModule", "load_module_from_checkpoint"):
-        cfg = {"_target_": "tacorl_tpu.modules.play_lmp.PlayLMPModule", **_tiny_cfg()}
-        lmp = PlayLMPModule(cfg, device="cpu")
-        CheckpointManager(tmp_path, config={"module": cfg}).save(0, lmp.init_state(0))
+    cfg = {"_target_": "tacorl_tpu.modules.play_lmp.PlayLMPModule", **_tiny_cfg()}
+    lmp = PlayLMPModule(cfg, device="cpu")
+    CheckpointManager(tmp_path, config={"module": cfg}).save(0, lmp.init_state(0))
     make = {
         "resolve_device": lambda: resolve_device(),
         "DeviceTransforms": lambda: DeviceTransforms({}),
@@ -110,9 +124,41 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "CQLModule": lambda: CQLModule(_cql_cfg()),
         "TACORLModule": lambda: TACORLModule({"play_lmp_dir": str(tmp_path)}),
         "load_module_from_checkpoint": lambda: load_module_from_checkpoint(tmp_path),
+        # the agents over modules built on the default device
+        "LatentPlanAgent": lambda: agents.LatentPlanAgent(PlayLMPModule(_tiny_cfg()), None),
+        "TACORLAgent": lambda: agents.TACORLAgent(TACORLModule({"play_lmp_dir": str(tmp_path)}), None),
+        "FlatPolicyAgent": lambda: agents.FlatPolicyAgent(CQLModule(_cql_cfg()), None),
+        "make_agent": lambda: agents.make_agent(*load_module_from_checkpoint(tmp_path)),
+        "evaluate.main": lambda: evaluate.main([f"module_path={tmp_path}", f"data_dir={tmp_path}"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
+
+
+def test_agent_refuses_a_module_whose_device_has_no_card():
+    """An agent checks its module's device itself."""
+    _no_cuda()
+    from types import SimpleNamespace
+
+    from tacorl_tpu_torch.evaluation import agents
+
+    module = SimpleNamespace(device="cuda", transforms=None)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        agents.LatentPlanAgent(module, SimpleNamespace(net=torch.nn.Linear(1, 1)))
+
+
+def test_evaluate_command_raises_without_cuda(tmp_path):
+    """``python -m tacorl_tpu_torch.evaluate`` without ``+device=cpu`` runs
+    on the card, so without one it fails before it loads anything."""
+    _no_cuda()
+    out = subprocess.run(
+        [sys.executable, "-m", "tacorl_tpu_torch.evaluate", f"module_path={tmp_path}",
+         f"data_dir={tmp_path}"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert "wrote" not in out.stdout
 
 
 def _fake_cuda_inputs(kernel):
