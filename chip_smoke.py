@@ -78,6 +78,35 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 loaded back through the port's CheckpointManager and
                 load_module_from_checkpoint, with TACORLAgent and
                 TACORLRollout.
+ 15. reference_train  the trainer at the tiny float32 config on the card
+                and on the CPU, from the same data, weights and draws, for
+                6 steps over 2 epochs with validation: every logged metric
+                within rtol 1e-4 (a wrong or late prefetched batch shows).
+ 16. train      stage 1 through ``tacorl_tpu_torch.train.main`` (the command
+                ``python -m tacorl_tpu_torch.train``), experiment=
+                play_lmp_for_rl at its composed width, on a synthetic CALVIN
+                set of 200x200 frames packed by the port (12 steps of 64
+                windows per epoch): 2 epochs, a val pass and a checkpoint
+                per epoch, ckpt_max_to_keep=2. Prints ms/step and steps/s
+                over the second epoch beside phase 7's bare step, the
+                loader's wait per step, the host-to-device ms of one pinned
+                batch, the device's busy share over 10 steps
+                (torch.profiler), host waits of a non-logging and a logging
+                step (sync debug mode), jitter_normalize launches per train
+                step (1) and per val pass (0), checkpoint bytes and save
+                ms; then the run's own step on a device-resident batch,
+                alone and beside the loader producing pinned and unpinned
+                batches (what the loader's host work costs the step).
+ 17. train_resume  the same run directory with trainer.max_steps raised:
+                resumes at the saved step, reloads callbacks_state.json,
+                appends to metrics.jsonl.
+ 18. train_tacorl  stage 2 through the trainer: experiment=tacorl grafted
+                from phase 16's run, goals from both strategies, 2 epochs of
+                12 steps; the same measurements, 2 launches per train step.
+ 19. train_callback  experiment=play_lmp_fake on a small expert-play set:
+                2 epochs with RolloutCallback scoring val_accuracy, the
+                checkpoint monitor on it, then
+                ``tacorl_tpu_torch.evaluate.main`` with epoch=best on the card.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -98,6 +127,7 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
+from tacorl_tpu_torch.callbacks.base import Callback
 from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
 from tacorl_tpu_torch.data.expert_play import generate_expert_play
 from tacorl_tpu_torch.envs.fake_calvin import FakeCalvinEnv
@@ -1357,6 +1387,483 @@ def phase_rollout_tacorl(card: str, data_dir: str, trained, trained_state) -> di
     return _measure_rollout("rollout_tacorl", card, module, state, data_dir)
 
 
+# ---------------------------------------------------------------------------
+# Stage 4: training through python -m tacorl_tpu_torch.train
+# ---------------------------------------------------------------------------
+
+# the synthetic CALVIN set at 200x200: 4 x (220 - 16) = 816 train windows,
+# 12 batches of 64; 2 x (220 - 16) = 408 val windows, 20 % of them (the
+# config's val_percentage) one batch
+TRAIN_EPISODES, VAL_EPISODES, EPISODE_LEN = 4, 2, 220
+TRAIN_KEYS = ("rgb_static", "robot_obs", "scene_obs", "rel_actions_world")
+TRAIN_STEPS, TRAIN_LOG_EVERY, RESUME_STEPS = 24, 4, 6
+PROFILE_FROM, PROFILE_STEPS = 2, 10  # steps 3-12 under torch.profiler
+TIMED_FROM, TIMED_TO = 13, 22  # the second epoch's steps 14-22, between syncs
+# step 23 is a non-logging step and step 24 a logging one (sync debug mode)
+
+
+class _TrainProbe(Callback):
+    """A trainer callback that measures the run it rides in: the profile of
+    steps PROFILE_FROM+1 .. PROFILE_FROM+PROFILE_STEPS, the host clock over
+    steps TIMED_FROM+1 .. TIMED_TO (a sync at both ends), host waits of
+    steps TIMED_TO+1 (non-logging) and TIMED_TO+2 (logging) under torch's
+    sync debug mode, jitter_normalize launches per train step and per
+    validation pass, and a snapshot of the weights at the start. Its
+    ``state_dict`` (steps seen) rides in callbacks_state.json."""
+
+    def __init__(self, measure: bool = True):
+        self.measure = measure
+        self.steps_seen = 0
+        self.loaded = None
+        self.step_launches, self.val_launches, self.epoch_steps = [], [], []
+        self.times, self.syncs = {}, {}
+        self.prof = self.warn = None
+        self.device_ms = self.kernels = self.copies = None
+
+    def state_dict(self):
+        return {"steps_seen": self.steps_seen}
+
+    def load_state_dict(self, state):
+        self.loaded = dict(state)
+        self.steps_seen = int(state["steps_seen"])
+
+    def on_fit_start(self, trainer, module):
+        self.module = module
+        self.before = {k: v.detach().clone() for k, v in trainer.state.net.state_dict().items()}
+
+    def on_epoch_start(self, trainer, module, epoch):
+        self.epoch_steps.append(0)
+        self._last = jitter_normalize.launches
+
+    def on_train_batch_end(self, trainer, module, metrics, step):
+        self.steps_seen += 1
+        self.epoch_steps[-1] += 1
+        self.step_launches.append(jitter_normalize.launches - self._last)
+        self._last = jitter_normalize.launches
+        if not self.measure:
+            return
+        self._profile(step)
+        if step in (TIMED_FROM, TIMED_TO):
+            torch.cuda.synchronize()
+            self.times[step] = time.perf_counter()
+        if step in (TIMED_TO + 1, TIMED_TO + 2):
+            self._stop_sync_debug(step)
+        if step in (TIMED_TO, TIMED_TO + 1):
+            self._start_sync_debug()
+
+    def _profile(self, step):
+        from torch.profiler import ProfilerActivity, profile
+
+        if step == PROFILE_FROM:
+            torch.cuda.synchronize()
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+            self.t_prof = time.perf_counter()
+        elif step == PROFILE_FROM + PROFILE_STEPS:
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - self.t_prof) * 1e3
+            self.prof.__exit__(None, None, None)
+            kernels, copies, device_ms = _kernel_counts(self.prof.key_averages(), PROFILE_STEPS)
+            self.wall_ms, self.kernels, self.copies = wall_ms / PROFILE_STEPS, kernels, copies
+            # busy: kernels only (the copies run on the copy engines)
+            from torch.autograd import DeviceType
+
+            events = self.prof.key_averages()
+            ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+            self.device_ms = sum(
+                e.device_time_total for e in events
+                if e.device_type == DeviceType.CUDA and e.key not in ranges
+                and not e.key.startswith(("Memcpy", "Memset"))
+            ) / 1e3 / PROFILE_STEPS
+            self.prof = None
+
+    def _start_sync_debug(self):
+        import warnings
+
+        self.warn = warnings.catch_warnings(record=True)
+        self._caught = self.warn.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+
+    def _stop_sync_debug(self, step):
+        torch.cuda.set_sync_debug_mode("default")
+        self.warn.__exit__(None, None, None)
+        sites = [
+            f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+            for w in self._caught if "synchroniz" in str(w.message)
+        ]
+        self.syncs[step] = {site: sites.count(site) for site in dict.fromkeys(sites)}
+
+    def on_validation_end(self, trainer, module, metrics, outputs, epoch):
+        self.val_launches.append(jitter_normalize.launches - self._last)
+        self._last = jitter_normalize.launches
+
+    def ms_per_step(self) -> float:
+        return (self.times[TIMED_TO] - self.times[TIMED_FROM]) * 1e3 / (TIMED_TO - TIMED_FROM)
+
+
+def phase_reference_train() -> None:
+    """The trainer at the tiny float32 config on the card and on the CPU:
+    the same synthetic packed data, initial weights and draws (a CPU
+    generator seeded by the step), 2 epochs with validation. Every logged
+    metric must agree (rtol 1e-4), so a batch that the card's pinned
+    side-stream prefetch delivered wrong (or late) shows here."""
+    from tacorl_tpu_torch.core.logging import MetricsSink
+    from tacorl_tpu_torch.core.trainer import Trainer
+    from tacorl_tpu_torch.data.datamodule import BasicDataModule
+    from tacorl_tpu_torch.data.storage import pack_frames
+    from tacorl_tpu_torch.data.synthetic import generate_synthetic_calvin
+
+    cfg = _tiny_cfg()
+    b, t, latent, pad = 4, 6, cfg["latent_plan_dim"], cfg["transforms"]["rgb_static"]["pad"]
+
+    def draws(device):
+        def source(split, index):
+            g = torch.Generator().manual_seed(index if split == "train" else 10_000 + index)
+            if split == "train":
+                out = {"aug_draws": {"rgb_static": {
+                    "shifts": torch.randint(0, 2 * pad + 1, (b * t, 2), generator=g),
+                    "factors": sample_jitter_factors(b * t, g),
+                }}, "eps": torch.randn((b, latent), generator=g)}
+            else:
+                out = {"eps": torch.randn((b, latent), generator=g),
+                       "pp_eps": torch.randn((b, latent), generator=g)}
+            return _to_device(out, device)
+        return source
+
+    rows = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        generate_synthetic_calvin(f"{tmp}/frames", 1, 1, 24, 56, keys=TRAIN_KEYS)
+        for split in ("training", "validation"):
+            pack_frames(f"{tmp}/frames/{split}", f"{tmp}/packed/{split}")
+        for device in ("cpu", "cuda"):
+            dm = BasicDataModule(
+                f"{tmp}/packed", batch_size=b, val_percentage=1.0, seed=1,
+                dataset={"modalities": ["rgb_static", "rel_actions_world"],
+                         "min_window_size": 4, "max_window_size": t},
+            )
+            sink = MetricsSink(f"{tmp}/{device}", console_every=0)
+            Trainer(max_steps=6, limit_val_batches=2, log_every_n_steps=1, sink=sink, seed=1,
+                    device=device, draw_source=draws(device)).fit(PlayLMPModule(cfg, device=device), dm)
+            sink.close()
+            rows[device] = _metrics_rows(f"{tmp}/{device}")
+    _check([r["step"] for r in rows["cuda"]] == [r["step"] for r in rows["cpu"]], "reference_train: steps")
+    worst = 0.0
+    for card_row, cpu_row in zip(rows["cuda"], rows["cpu"]):
+        _check(set(card_row) == set(cpu_row), "reference_train: metric keys")
+        for k, v in cpu_row.items():
+            if k not in ("step", "time"):
+                err = abs(card_row[k] - v) / max(abs(v), 1e-6)
+                worst = max(worst, err)
+                _check(err <= 1e-4, f"reference_train {k} at step {cpu_row['step']}: card {card_row[k]} vs cpu {v}")
+    print(
+        f"[reference_train] tiny float32 trainer, card (pinned loader, side-stream prefetch) vs CPU, "
+        f"same data, weights and draws: {len(rows['cpu'])} metric rows over 6 steps, 2 epochs and 2 "
+        f"val passes, largest relative difference {worst:.3g} (rtol 1e-4)",
+        flush=True,
+    )
+
+
+def _train_data(root) -> str:
+    """The synthetic CALVIN set at 200x200, packed; returns its root."""
+    from tacorl_tpu_torch.data.storage import pack_frames
+    from tacorl_tpu_torch.data.synthetic import generate_synthetic_calvin
+
+    generate_synthetic_calvin(
+        f"{root}/frames", TRAIN_EPISODES, VAL_EPISODES, EPISODE_LEN, RAW_HW, keys=TRAIN_KEYS
+    )
+    for split in ("training", "validation"):
+        pack_frames(f"{root}/frames/{split}", f"{root}/packed/{split}")
+    shutil.rmtree(f"{root}/frames")
+    return f"{root}/packed"
+
+
+def _train_args(experiment: str, data_dir: str, run_dir: str, max_steps: int, *extra) -> list:
+    return [
+        f"experiment={experiment}", f"data_dir={data_dir}", f"run_dir={run_dir}",
+        f"trainer.max_steps={max_steps}", f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}",
+        *extra,
+    ]
+
+
+def _metrics_rows(run_dir) -> list:
+    with open(f"{run_dir}/metrics.jsonl") as f:
+        return [json.loads(line) for line in f]
+
+
+def _h2d_ms(trainer) -> tuple:
+    """One pinned train batch of the run's loader copied to the card by the
+    trainer's DevicePut: median CUDA-event ms of 5 copies, and its bytes."""
+    from tacorl_tpu_torch.data.loader import DevicePut, tree_map
+
+    loader = trainer.datamodule.train_loader()
+    loader.pin_memory = True
+    batch = next(iter(loader))
+    sizes = []
+    tree_map(lambda t: sizes.append(t.numel() * t.element_size()), batch)
+    nbytes = sum(sizes)
+    put = DevicePut("cuda")
+    times = []
+    for _ in range(6):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record(put.stream)
+        done = put(batch)
+        end.record(put.stream)
+        put.ready(done)
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:]), nbytes
+
+
+def _report_trainer(tag, card, trainer, probe, bare_ms, launches_per_step):
+    """Checks and prints what the probe measured in a train phase."""
+    _check(trainer.device.type == "cuda", f"{tag}: trained on {trainer.device}")
+    _check(all(n == launches_per_step for n in probe.step_launches),
+           f"{tag}: jitter_normalize launches per train step {probe.step_launches}")
+    _check(all(n == 0 for n in probe.val_launches), f"{tag}: launches in validation {probe.val_launches}")
+    after = trainer.state.net.state_dict()
+    changed = sum(not torch.equal(probe.before[k], after[k]) for k in probe.before)
+    _check(changed > 0, f"{tag}: no parameter changed")
+    rows = [r for r in _metrics_rows(trainer.ckpt.dir) if any(k.startswith("train/") for k in r)]
+    _check(bool(rows) and all(np.isfinite(v) for r in rows for k, v in r.items() if k.startswith("train/")),
+           f"{tag}: non-finite or missing train metrics")
+    ms = probe.ms_per_step()
+    epoch1 = trainer.batch_wait_ms[-probe.epoch_steps[-1]:]
+    h2d_ms, nbytes = _h2d_ms(trainer)
+    val_s = [r for r in _metrics_rows(trainer.ckpt.dir) if any(k.startswith("validation/") for k in r)]
+    _check(len(val_s) == len(probe.epoch_steps), f"{tag}: {len(val_s)} val passes in {len(probe.epoch_steps)} epochs")
+    saves = ", ".join(f"step {s}: {b / 1e6:.1f} MB in {t:.0f} ms" for s, b, t in trainer.saves)
+    print(
+        f"[{tag}] {probe.steps_seen} steps in {len(probe.epoch_steps)} epochs {probe.epoch_steps}: "
+        f"{ms:.3f} ms/step ({1e3 / ms:.2f} steps/s) over steps {TIMED_FROM + 1}-{TIMED_TO} of the "
+        f"second epoch, bare step (same call) {bare_ms:.3f} ms ({1e3 / bare_ms:.2f} steps/s) | "
+        f"loader wait per step (second epoch) median {statistics.median(epoch1):.3f} ms, max "
+        f"{max(epoch1):.3f} ms | H2D of one pinned batch ({nbytes / 1e6:.1f} MB) {h2d_ms:.3f} ms "
+        f"({nbytes / h2d_ms / 1e6:.2f} GB/s) | {train_loss_line(rows)} | {changed}/{len(after)} "
+        f"tensors changed | {card}",
+        flush=True,
+    )
+    print(
+        f"[{tag}] profile of {PROFILE_STEPS} steps ({PROFILE_FROM + 1}-{PROFILE_FROM + PROFILE_STEPS}): "
+        f"{probe.wall_ms:.3f} ms/step under the profiler, device kernels {probe.device_ms:.3f} ms/step, "
+        f"busy {probe.device_ms / probe.wall_ms:.1%} (idle {1 - probe.device_ms / probe.wall_ms:.1%}); "
+        f"{probe.kernels:.0f} kernels and {probe.copies:.1f} copies per step",
+        flush=True,
+    )
+    for step, kind in ((TIMED_TO + 1, "non-logging"), (TIMED_TO + 2, "logging")):
+        waits = probe.syncs[step]
+        print(f"[{tag}] host waits in step {step} ({kind}, loader and callbacks included): "
+              f"{sum(waits.values())}, at: {_sites(waits)}", flush=True)
+    print(
+        f"[{tag}] jitter_normalize launches per train step {sorted(set(probe.step_launches))}, per "
+        f"validation pass {probe.val_launches} | checkpoints: {saves}; kept {trainer.ckpt.all_steps()}",
+        flush=True,
+    )
+    return ms
+
+
+def _step_contention(tag: str, card: str, trainer, probe, steps: int = 10, warmup: int = 2) -> dict:
+    """The trained module's own train step (the composed config) on one
+    device-resident batch, a sync after each step: alone, then with the
+    run's loader producing batches on its threads beside it, pinned and
+    unpinned. Separates the config's step from what the loader's host work
+    costs the launch-bound training thread; the loader's batches/s is its
+    capacity."""
+    import threading
+
+    from tacorl_tpu_torch.data.loader import DevicePut
+
+    module, state = probe.module, trainer.state
+    step = module.make_train_step()
+    put = DevicePut("cuda")
+    loader = trainer.datamodule.train_loader()
+    loader.pin_memory = True
+    batch = put.ready(put(next(iter(loader))))
+
+    def timed():
+        nonlocal state
+        times = []
+        for _ in range(warmup + steps):
+            t0 = time.perf_counter()
+            state, _ = step(state, batch, module.step_scalars())
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times[warmup:])
+
+    ms = {"alone": timed()}
+    rate = {}
+    for pin in (True, False):
+        stop, produced = threading.Event(), [0]
+
+        def produce():
+            while not stop.is_set():
+                dl = trainer.datamodule.train_loader()
+                dl.pin_memory = pin
+                for _ in dl:
+                    produced[0] += 1
+                    if stop.is_set():
+                        break
+
+        thread = threading.Thread(target=produce, daemon=True)
+        thread.start()
+        time.sleep(0.5)  # the pool's window fills
+        t0, n0 = time.perf_counter(), produced[0]
+        key = "pinned" if pin else "unpinned"
+        ms[key] = timed()
+        rate[key] = (produced[0] - n0) / (time.perf_counter() - t0)
+        stop.set()
+        thread.join(timeout=120)
+        _check(not thread.is_alive(), f"{tag}: the loader thread did not stop")
+    print(
+        f"[{tag}] the run's own step on a device-resident batch (median of {steps}, a sync each): "
+        f"alone {ms['alone']:.3f} ms; beside the loader producing pinned batches "
+        f"{ms['pinned']:.3f} ms (loader {rate['pinned']:.1f} batches/s), unpinned "
+        f"{ms['unpinned']:.3f} ms (loader {rate['unpinned']:.1f} batches/s) | {card}",
+        flush=True,
+    )
+    return ms
+
+
+def train_loss_line(rows) -> str:
+    key = "train/total_loss" if "train/total_loss" in rows[0] else "train/q1_loss"
+    return f"{key} {rows[0][key]:.4f} (step {rows[0]['step']}) -> {rows[-1][key]:.4f} (step {rows[-1]['step']})"
+
+
+def phase_train(card: str, data_dir: str, run_dir: str, bare_ms: float):
+    """Stage 1 through the trainer: experiment=play_lmp_for_rl (the
+    composed config: 3-layer prior MLP, posterior dropout 0.1, unlike
+    PRODUCTION_CFG's 2 and 0.01) for two epochs of 12 steps, a val pass and
+    a checkpoint per epoch, ckpt_max_to_keep=2."""
+    from tacorl_tpu_torch import train
+
+    probe = _TrainProbe()
+    jitter_normalize.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(
+        _train_args("play_lmp_for_rl", data_dir, run_dir, TRAIN_STEPS, "ckpt_max_to_keep=2"),
+        callbacks=[probe],
+    )
+    wall = time.perf_counter() - t0
+    launches = jitter_normalize.launches
+    _check(trainer.global_step == TRAIN_STEPS and len(probe.epoch_steps) == 2, f"train: {probe.epoch_steps}")
+    _check(launches == TRAIN_STEPS, f"train: jitter_normalize launched {launches} times in {TRAIN_STEPS} steps")
+    kept = trainer.ckpt.all_steps()
+    _check(len(kept) == 2 and kept[-1] == TRAIN_STEPS, f"train: kept {kept}")
+    _report_trainer("train", card, trainer, probe, bare_ms, 1)
+    _step_contention("train", card, trainer, probe)
+    print(f"[train] train.main took {wall:.1f} s (module build, 2 epochs, 2 val passes, 2 saves)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_resume(card: str, data_dir: str, run_dir: str) -> None:
+    """The same run directory with trainer.max_steps raised: the run resumes
+    at the saved step, continues global_step, reloads callbacks_state.json
+    and appends to metrics.jsonl."""
+    from tacorl_tpu_torch import train
+
+    before = _metrics_rows(run_dir)
+    probe = _TrainProbe(measure=False)
+    trainer = train.main(
+        _train_args("play_lmp_for_rl", data_dir, run_dir, TRAIN_STEPS + RESUME_STEPS, "ckpt_max_to_keep=2"),
+        callbacks=[probe],
+    )
+    rows = _metrics_rows(run_dir)
+    steps = [r["step"] for r in rows]
+    new_train = [r["step"] for r in rows[len(before):] if any(k.startswith("train/") for k in r)]
+    _check(probe.loaded == {"steps_seen": TRAIN_STEPS}, f"train_resume: callback state {probe.loaded}")
+    _check(trainer.global_step == TRAIN_STEPS + RESUME_STEPS and probe.steps_seen == TRAIN_STEPS + RESUME_STEPS,
+           f"train_resume: global step {trainer.global_step}")
+    _check(steps == sorted(steps) and new_train and new_train[0] > TRAIN_STEPS,
+           f"train_resume: metrics.jsonl steps {steps}")
+    _check(trainer.ckpt.latest_step() == TRAIN_STEPS + RESUME_STEPS, "train_resume: no checkpoint at the stop")
+    print(
+        f"[train_resume] resumed at step {TRAIN_STEPS} (epoch 0 of the resumed run, as the JAX trainer "
+        f"does), {RESUME_STEPS} more steps to {trainer.global_step}; callbacks_state.json reloaded "
+        f"{probe.loaded}; metrics.jsonl steps increasing ({len(before)} -> {len(rows)} rows); kept "
+        f"{trainer.ckpt.all_steps()} | {card}",
+        flush=True,
+    )
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_train_tacorl(card: str, data_dir: str, lmp_dir: str, run_dir: str, bare_ms: float):
+    """Stage 2 through the trainer: experiment=tacorl grafted from the train
+    phase's run, goals from both strategies (geometric and
+    similar_robot_obs), two epochs of 12 steps."""
+    from tacorl_tpu_torch import train
+
+    probe = _TrainProbe()
+    jitter_normalize.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(
+        _train_args("tacorl", data_dir, run_dir, TRAIN_STEPS, f"play_lmp_dir={lmp_dir}"),
+        callbacks=[probe],
+    )
+    wall = time.perf_counter() - t0
+    launches = jitter_normalize.launches
+    ds = trainer.datamodule.train_dataset
+    _check(ds.include_goal and set(ds.goal_strategy_prob) == {"geometric", "similar_robot_obs"},
+           f"train_tacorl: goal strategies {getattr(ds, 'goal_strategy_prob', None)}")
+    _check(launches == 2 * TRAIN_STEPS, f"train_tacorl: jitter_normalize launched {launches} times")
+    _report_trainer("train_tacorl", card, trainer, probe, bare_ms, 2)
+    _step_contention("train_tacorl", card, trainer, probe)
+    print(f"[train_tacorl] train.main took {wall:.1f} s (graft, k-NN goal index, 2 epochs, 2 val "
+          f"passes, 2 saves)", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_callback(card: str, root: str) -> None:
+    """experiment=play_lmp_fake on a small expert-play set for 2 epochs, the
+    RolloutCallback scoring each epoch into val_accuracy, the checkpoint
+    monitor on it (mode max); then python -m tacorl_tpu_torch.evaluate
+    epoch=best scores the run on the card."""
+    from tacorl_tpu_torch import evaluate, train
+
+    generate_expert_play(f"{root}/play", n_train_episodes=4, n_val_episodes=3, image_hw=64, seed=1)
+    run_dir = f"{root}/run"
+    jitter_normalize.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main([
+        "experiment=play_lmp_fake", f"data_dir={root}/play", f"run_dir={run_dir}",
+        "trainer.max_epochs=2", f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}",
+    ])
+    wall = time.perf_counter() - t0
+    _check(trainer.device.type == "cuda", "train_callback: platform: cpu moved the run off the card")
+    rows = _metrics_rows(run_dir)
+    accs = [r["val_accuracy"] for r in rows if "val_accuracy" in r]
+    _check(len(accs) == 2, f"train_callback: val_accuracy logged {len(accs)} times")
+    kept, best = trainer.ckpt.all_steps(), trainer.ckpt.best_step()
+    _check(best in kept, f"train_callback: best step {best} not in {kept}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        results = evaluate.main([
+            f"module_path={run_dir}", "epoch=best", "eval_type=short_horizon",
+            f"data_dir={root}/play/validation", "min_seq_len=1", "max_seq_len=400",
+            "max_rollouts=2", "plan_duration=4", "env.max_episode_steps=56",
+            f"filename={tmp}/best.json",
+        ])
+        eval_s = time.perf_counter() - t1
+    _check(bool(results) and all(np.isfinite(r["accuracy"]) for r in results.values()),
+           f"train_callback: evaluate results {results}")
+    print(
+        f"[train_callback] play_lmp_fake, 2 epochs of {trainer.global_step // 2} steps in {wall:.1f} s, "
+        f"RolloutCallback val_accuracy {accs}, monitor val_accuracy (max): kept {kept}, best_step "
+        f"{best} | evaluate epoch=best short_horizon on the card in {eval_s:.1f} s: "
+        + ", ".join(f"{t} {r['accuracy']:.2f}" for t, r in results.items())
+        + f" (an untrained policy scores about 0) | jitter_normalize launches "
+        f"{jitter_normalize.launches} | {card}",
+        flush=True,
+    )
+    del trainer
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1383,10 +1890,21 @@ def main() -> int:
         rollout = phase_rollout(card, data_dir)
         torch.cuda.empty_cache()
         rollout_tacorl = phase_rollout_tacorl(card, data_dir, *trained)
+    del trained
+    torch.cuda.empty_cache()
+    phase_reference_train()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_data = _train_data(tmp)
+        launches_train = phase_train(card, train_data, f"{tmp}/lmp", step_ms)
+        phase_train_resume(card, train_data, f"{tmp}/lmp")
+        launches_train_tacorl = phase_train_tacorl(card, train_data, f"{tmp}/lmp", f"{tmp}/tacorl", tacorl_ms)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_train_callback(card, tmp)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
         "rollout": rollout["jitter_normalize"], "rollout_tacorl": rollout_tacorl["jitter_normalize"],
+        "train": launches_train, "train_tacorl": launches_train_tacorl,
     }
     shift["launches_by_path"] = {
         "augment": shift["launches"], "rollout": rollout["shift_jitter_normalize"],

@@ -6,13 +6,22 @@ port's own format:
     <dir>/ckpts/<step>/state.pt     torch.save of TrainState.state_dict():
                                     step, the net's state_dict (the
                                     reference layout) and the optimizer's
+    <dir>/ckpts/metrics.json        step -> monitored metric
 
-Every save is kept: top-K-by-metric retention is not ported yet.
+Retention is the JAX package's: at most ``max_to_keep`` saves, the latest
+always kept, the rest the best by ``monitor`` (``mode`` max or min). A save
+without the metric scores NaN, which ranks last in max mode and, as in the
+JAX package, first in min mode (ROADMAP Queue 3). The JAX package's
+param-tree surgery (``graft``, ``freeze_mask``) has no counterpart here:
+the port grafts with ``load_state_dict`` and freezes with
+``requires_grad_`` (``modules/tacorl.py``).
 """
 
 from __future__ import annotations
 
 import json
+import math
+import shutil
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Union
 
@@ -24,23 +33,68 @@ __all__ = ["CheckpointManager", "load_module_from_checkpoint"]
 
 
 class CheckpointManager:
-    def __init__(self, directory: Union[str, Path], config: Optional[dict] = None):
+    def __init__(
+        self,
+        directory: Union[str, Path],
+        max_to_keep: int = 3,
+        monitor: Optional[str] = None,
+        mode: str = "max",
+        config: Optional[dict] = None,
+    ):
         self.dir = Path(directory).expanduser()
         self.ckpt_dir = self.dir / "ckpts"
         self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.monitor = monitor
+        self.mode = mode
+        self.max_to_keep = max_to_keep
+        self._metrics_file = self.ckpt_dir / "metrics.json"
+        self._metrics: Dict[str, float] = (
+            json.loads(self._metrics_file.read_text())
+            if self._metrics_file.is_file()
+            else {}
+        )
         if config is not None:
             (self.dir / "config.json").write_text(json.dumps(config, indent=1))
 
     def _path(self, step: int) -> Path:
         return self.ckpt_dir / str(step) / "state.pt"
 
-    def save(self, step: int, state: Any) -> None:
-        """``state`` is a TrainState (or anything with ``state_dict``)."""
+    def save(
+        self, step: int, state: Any, metrics: Optional[Dict[str, float]] = None
+    ) -> None:
+        """``state`` is a TrainState (or anything with ``state_dict``);
+        ``metrics`` may hold the monitored value of this save."""
         path = self._path(step)
         path.parent.mkdir(parents=True, exist_ok=True)
         partial = path.with_suffix(".tmp")
         torch.save(state.state_dict(), partial)
         partial.replace(path)
+        if metrics and self.monitor and self.monitor in metrics:
+            self._metrics[str(step)] = float(metrics[self.monitor])
+        else:
+            self._metrics.setdefault(str(step), float("nan"))
+        self._retention()
+        self._metrics_file.write_text(json.dumps(self._metrics))
+
+    def _retention(self) -> None:
+        steps = sorted(int(s) for s in self._metrics)
+        if len(steps) <= self.max_to_keep:
+            return
+        last = steps[-1]  # always keep the latest (save_last semantics)
+        candidates = steps[:-1]
+        if self.monitor:
+            sign = 1.0 if self.mode == "max" else -1.0
+
+            def score(s):
+                v = self._metrics[str(s)]
+                return sign * (v if math.isfinite(v) else -math.inf)
+
+            candidates.sort(key=score, reverse=True)
+        keep = set(candidates[: self.max_to_keep - 1]) | {last}
+        for s in steps:
+            if s not in keep:
+                shutil.rmtree(self._path(s).parent, ignore_errors=True)
+                self._metrics.pop(str(s), None)
 
     def all_steps(self) -> List[int]:
         return sorted(
@@ -52,11 +106,25 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
+    def best_step(self) -> Optional[int]:
+        """The kept step with the best finite monitored value, else the
+        latest."""
+        scored = {int(s): v for s, v in self._metrics.items() if math.isfinite(v)}
+        if not scored:
+            return self.latest_step()
+        fn = max if self.mode == "max" else min
+        return fn(scored, key=scored.get)
+
     def restore(
-        self, step: Optional[int] = None, map_location: Union[str, torch.device] = "cpu"
+        self,
+        step: Union[int, str, None] = None,
+        map_location: Union[str, torch.device] = "cpu",
     ) -> Dict[str, Any]:
-        """The saved state dict of ``step`` (the latest when None or < 0)."""
-        if step is None or step < 0:
+        """The saved state dict of ``step``: ``"best"`` for ``best_step``,
+        the latest when None or < 0."""
+        if step == "best":
+            step = self.best_step()
+        elif step is None or step < 0:
             step = self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.ckpt_dir}")
@@ -68,17 +136,21 @@ class CheckpointManager:
 
 def load_module_from_checkpoint(
     directory: Union[str, Path],
-    step: int = -1,
+    step: Union[int, str] = -1,
     overwrite_cfg: Optional[dict] = None,
     device: Union[str, torch.device] = "cuda",
 ):
     """Re-instantiate a port module from the config saved beside its
     checkpoints (its ``module`` entry, or the whole config; ``_target_:
     tacorl_tpu.X`` resolves to the port's class) on ``device`` and restore
-    its state. ``overwrite_cfg`` overrides keys of the module config.
-    Returns (module, state)."""
+    its state (``step``: an int, -1 for the latest, or ``"best"``: ranked
+    by the run's ``ckpt_mode``, "min" when the config has none, as
+    ``python -m tacorl_tpu_torch.train`` defaults it; the JAX package ranks
+    by "max" here whatever the run monitored). ``overwrite_cfg`` overrides
+    keys of the module config. Returns (module, state)."""
     manager = CheckpointManager(directory)
     cfg = manager.load_config()
+    manager.mode = cfg.get("ckpt_mode", "min")
     if overwrite_cfg:
         cfg = merge(cfg, {"module": overwrite_cfg} if "module" in cfg else overwrite_cfg)
     module_cfg = cfg["module"] if "module" in cfg else cfg

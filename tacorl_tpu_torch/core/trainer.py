@@ -1,0 +1,306 @@
+"""Training orchestration (port of tacorl_tpu/core/trainer.py): the epoch and
+step loop on one explicit device, validation, checkpoints with auto-resume,
+callbacks.
+
+What the JAX trainer does, the port does the same way:
+  * init, or auto-resume from the latest checkpoint; a resumed run starts
+    at epoch 0 with ``global_step`` from the checkpoint (so its loader
+    replays epoch 0's order, as the JAX trainer's does);
+  * ``set_epoch`` and the callback hooks around each epoch, the module's
+    ``step_scalars`` passed into every step;
+  * batches reach the step already on the device: the loader's threads pin
+    them (on a card), ``data/loader.py:DevicePut`` copies them on a side
+    stream ``prefetch_to_device`` batches ahead;
+  * the step's metrics stay on the device; a logging step copies them to
+    the host in one batch, so only logging steps wait for the device;
+  * ``validate`` (``limit_val_batches``) after every ``val_every_n_epochs``
+    epochs, a checkpoint after every ``ckpt_every_n_epochs`` and at the stop,
+    callback state beside the checkpoints keyed by class name (the legacy
+    positional list format still loads).
+
+Randomness: the JAX train step folds its key with ``state.step``, so a
+resumed run draws what an uninterrupted one draws. The port gets the same:
+before each train step the module's ``torch.Generator`` and the device's
+default generator (which dropout draws from) are seeded from
+``(seed, global_step)``, before each validation batch from
+``(seed + 1, i)``. An optional ``draw_source(split, index)`` ("train" with
+the global step, "validation" with the batch index) returns extra keyword
+arguments for that call of the step, e.g. the JAX key chain's draws in the
+parity tests.
+
+Not ported: ``steps_per_call > 1`` (the JAX package's scanned K-step
+dispatch; a K-step CUDA graph is ROADMAP Queue 1, item 6) raises.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import time
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
+
+import numpy as np
+import torch
+from torch.profiler import record_function
+
+from tacorl_tpu_torch.core.checkpoint import CheckpointManager
+from tacorl_tpu_torch.core.logging import MetricsSink
+from tacorl_tpu_torch.data.loader import DevicePut, device_prefetch
+from tacorl_tpu_torch.utils import resolve_device
+
+logger = logging.getLogger("tacorl_tpu_torch")
+
+__all__ = ["Trainer", "step_seed"]
+
+DrawSource = Callable[[str, int], Optional[Dict[str, Any]]]
+
+
+def step_seed(seed: int, index: int) -> int:
+    """A 63-bit generator seed from (seed, index)."""
+    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0] >> 1)
+
+
+def _host_floats(metrics: Dict[str, Any]) -> Dict[str, float]:
+    """Every metric as a Python float, in one device-to-host copy."""
+    if not metrics:
+        return {}
+    values = torch.stack([torch.as_tensor(v).detach().float().reshape(()) for v in metrics.values()])
+    return dict(zip(metrics, values.cpu().tolist()))
+
+
+class Trainer:
+    def __init__(
+        self,
+        max_epochs: Optional[int] = None,
+        max_steps: Optional[int] = None,
+        val_every_n_epochs: int = 1,
+        limit_val_batches: Optional[int] = None,
+        ckpt_manager: Optional[CheckpointManager] = None,
+        sink: Optional[MetricsSink] = None,
+        callbacks: Sequence[Any] = (),
+        seed: int = 0,
+        device: Union[str, torch.device] = "cuda",
+        ckpt_every_n_epochs: int = 1,
+        prefetch_to_device: int = 1,
+        log_every_n_steps: int = 50,
+        steps_per_call: int = 1,
+        draw_source: Optional[DrawSource] = None,
+    ):
+        if steps_per_call != 1:
+            raise NotImplementedError(
+                "steps_per_call > 1 (scanned multi-step dispatch) is not ported yet "
+                "(ROADMAP Queue 1, item 6)"
+            )
+        self.device = resolve_device(device)
+        self.max_epochs = max_epochs
+        self.max_steps = max_steps
+        self.val_every_n_epochs = val_every_n_epochs
+        self.limit_val_batches = limit_val_batches
+        self.ckpt = ckpt_manager
+        self.sink = sink or MetricsSink()
+        self.callbacks = list(callbacks)
+        self.seed = seed
+        self.ckpt_every_n_epochs = ckpt_every_n_epochs
+        self.prefetch_to_device = prefetch_to_device
+        self.log_every_n_steps = log_every_n_steps
+        self.draw_source = draw_source
+        self.global_step = 0
+        self.epoch = 0
+        self.datamodule = None
+        self.state = None
+        self._last_val_metrics: Dict[str, float] = {}
+        self._current_batch = None
+        # host-side measurements: ms the training thread waited for each
+        # batch (loader + copy enqueue), and each checkpoint save's
+        # (step, bytes, ms)
+        self.batch_wait_ms: List[float] = []
+        self.saves: List[tuple] = []
+
+    # -- helpers -----------------------------------------------------------
+
+    def _cb(self, hook: str, *args) -> None:
+        for cb in self.callbacks:
+            getattr(cb, hook)(self, *args)
+
+    def _should_stop(self) -> bool:
+        return self.max_steps is not None and self.global_step >= self.max_steps
+
+    def _seed(self, module, seed: int, index: int) -> None:
+        """Seed the module's generator and the device's default generator
+        from (seed, index)."""
+        s = step_seed(seed, index)
+        if getattr(module, "generator", None) is not None:
+            module.generator.manual_seed(s)
+        if self.device.type == "cuda":
+            torch.cuda.default_generators[self.device.index or torch.cuda.current_device()].manual_seed(s)
+        else:
+            torch.default_generator.manual_seed(s)
+
+    def _draws(self, split: str, index: int) -> Dict[str, Any]:
+        if self.draw_source is None:
+            return {}
+        return self.draw_source(split, index) or {}
+
+    def _loader(self, loader):
+        loader.pin_memory = self.device.type == "cuda"
+        return loader
+
+    # -- main loop -----------------------------------------------------------
+
+    def fit(self, module, datamodule, resume: bool = True) -> Any:
+        if resolve_device(module.device) != self.device:
+            raise ValueError(f"module on {module.device}, trainer on {self.device}")
+        self.datamodule = datamodule
+        datamodule.setup()
+        train_loader = self._loader(datamodule.train_loader())
+
+        if resume and self.ckpt is not None and self.ckpt.latest_step() is not None:
+            self.state = module.restore_state(self.ckpt)
+            self.global_step = int(self.state.step)
+            logger.info("resumed from step %d", self.global_step)
+        else:
+            self.state = module.init_state(self.seed)
+        train_step = module.make_train_step()
+        val_step = module.make_val_step()
+        put = DevicePut(self.device)
+
+        self._load_callback_states()
+        self._cb("on_fit_start", module)
+        epoch = self.epoch
+        while not self._should_stop() and (self.max_epochs is None or epoch < self.max_epochs):
+            self.epoch = epoch
+            if hasattr(module, "set_epoch"):
+                module.set_epoch(epoch)
+            self._cb("on_epoch_start", module, epoch)
+            t_epoch = time.time()
+            n_batches = 0
+            host_batches = iter(train_loader)
+            batches = device_prefetch(host_batches, put, self.prefetch_to_device)
+            while True:
+                t0 = time.perf_counter()
+                with record_function("trainer/next_batch"):
+                    batch = next(batches, None)
+                if batch is None:
+                    break
+                self.batch_wait_ms.append((time.perf_counter() - t0) * 1e3)
+                self._current_batch = batch  # callbacks may probe it
+                self._seed(module, self.seed, self.global_step)
+                draws = self._draws("train", self.global_step)
+                with record_function("trainer/train_step"):
+                    self.state, metrics = train_step(
+                        self.state, batch, module.step_scalars(), **draws
+                    )
+                self.global_step += 1
+                n_batches += 1
+                if self.global_step % self.log_every_n_steps == 0:
+                    with record_function("trainer/log"):
+                        self.sink.log(_host_floats(metrics), self.global_step, prefix="train")
+                self._cb("on_train_batch_end", module, metrics, self.global_step)
+                if self._should_stop():
+                    break
+            batches.close()
+            host_batches.close()  # a stop mid-epoch cancels the loader's queued batches
+            logger.info("epoch %d: %d steps in %.1fs", epoch, n_batches, time.time() - t_epoch)
+            if n_batches == 0:
+                raise RuntimeError("epoch produced zero train steps: empty dataset")
+
+            if (epoch + 1) % self.val_every_n_epochs == 0:
+                self.validate(module, datamodule, val_step)
+            self._cb("on_epoch_end", module, epoch)
+            if self.ckpt is not None and (
+                (epoch + 1) % self.ckpt_every_n_epochs == 0 or self._should_stop()
+            ):
+                self._save()
+            epoch += 1
+        self._cb("on_fit_end", module)
+        return self.state
+
+    def _save(self) -> None:
+        t0 = time.perf_counter()
+        self.ckpt.save(self.global_step, self.state, metrics=self._last_val_metrics)
+        ms = (time.perf_counter() - t0) * 1e3
+        path = self.ckpt.ckpt_dir / str(self.global_step) / "state.pt"
+        nbytes = path.stat().st_size if path.is_file() else 0
+        self.saves.append((self.global_step, nbytes, ms))
+        logger.info("saved step %d: %d bytes in %.1f ms", self.global_step, nbytes, ms)
+        self._save_callback_states()
+
+    # -- callback state rides next to the checkpoints -------------------------
+
+    def _callback_state_path(self):
+        return self.ckpt.dir / "callbacks_state.json" if self.ckpt else None
+
+    def _callback_key(self, cb) -> str:
+        """The class name; duplicates of one class as "Name#i" by their
+        order among the callbacks of that class."""
+        name = type(cb).__name__
+        same = [c for c in self.callbacks if type(c).__name__ == name]
+        if len(same) == 1:
+            return name
+        return f"{name}#{same.index(cb)}"
+
+    def _save_callback_states(self) -> None:
+        path = self._callback_state_path()
+        if path is None:
+            return
+        states = {}
+        for cb in self.callbacks:
+            state = cb.state_dict()
+            if state:
+                states[self._callback_key(cb)] = state
+        if states:
+            path.write_text(json.dumps(states))
+
+    def _load_callback_states(self) -> None:
+        path = self._callback_state_path()
+        if path is None or not path.exists():
+            return
+        states = json.loads(path.read_text())
+        if isinstance(states, list):  # legacy positional format
+            for cb, state in zip(self.callbacks, states):
+                cb.load_state_dict(state)
+            return
+        for cb in self.callbacks:
+            # the exact (possibly #-suffixed) key, else the bare class name
+            state = states.get(self._callback_key(cb)) or states.get(type(cb).__name__)
+            if state:
+                cb.load_state_dict(state)
+
+    # -- validation ------------------------------------------------------------
+
+    def validate(self, module, datamodule, val_step=None) -> Dict[str, float]:
+        """A validation pass; returns the ``validation/``-prefixed mean
+        metrics plus what rollout callbacks added (e.g. ``val_accuracy``),
+        the dict the checkpoint monitor sees. Per-batch metrics stay on the
+        device and reach the host in one copy at the end; ``outputs`` (the
+        val step's, one dict per batch) stay on the device."""
+        val_loader = datamodule.val_loader()
+        if val_loader is None:
+            self._last_val_metrics = {}
+            self._cb("on_validation_end", module, {}, [], self.epoch)
+            return dict(self._last_val_metrics)
+        if val_step is None:
+            val_step = module.make_val_step()
+        put = DevicePut(self.device)
+        per_batch: Dict[str, List[torch.Tensor]] = {}
+        outputs = []
+        with record_function("trainer/validate"):
+            for i, batch in enumerate(self._loader(val_loader)):
+                if self.limit_val_batches is not None and i >= self.limit_val_batches:
+                    break
+                self._seed(module, self.seed + 1, i)
+                metrics, out = val_step(
+                    self.state, put.ready(put(batch)), module.step_scalars(),
+                    **self._draws("validation", i),
+                )
+                for k, v in metrics.items():
+                    per_batch.setdefault(k, []).append(torch.as_tensor(v).detach().float().reshape(()))
+                outputs.append(out)
+        mean_metrics = {}
+        if per_batch:
+            stacked = torch.stack([torch.stack(v) for v in per_batch.values()]).cpu().numpy()
+            mean_metrics = {k: float(np.mean(row.astype(np.float64))) for k, row in zip(per_batch, stacked)}
+        self.sink.log(mean_metrics, self.global_step, prefix="validation")
+        self._last_val_metrics = {f"validation/{k}": v for k, v in mean_metrics.items()}
+        self._cb("on_validation_end", module, mean_metrics, outputs, self.epoch)
+        return dict(self._last_val_metrics)

@@ -1,0 +1,238 @@
+"""Host-side batching and the copy to the device (port of
+tacorl_tpu/data/loader.py).
+
+``DataLoader`` is the JAX package's: a thread-pooled sampler feeding a
+bounded prefetch queue; batches are dicts of numpy arrays whose every
+random draw is keyed by ``(seed, epoch, batch_idx[, idx])``, so they are
+bit-equal to the JAX package's and independent of the thread count. With
+``pin_memory`` set, the loader's threads copy each finished batch into
+page-locked torch tensors, so the training thread never pins.
+
+``device_prefetch`` keeps ``depth`` batches in flight: ``put_fn`` runs on the
+next host batch while the current one computes. ``DevicePut`` is the
+``put_fn`` of a device: on a card it starts ``non_blocking`` copies of a
+(pinned) batch on its own side stream and records an event after them;
+``DevicePut.ready`` (called by ``device_prefetch`` as it hands a batch out)
+makes the consumer's current stream wait for that event and marks each
+tensor with ``record_stream``, so the caching allocator does not reuse its
+memory while the consumer's kernels may still read it. On the CPU it is
+``torch.as_tensor`` of each leaf.
+"""
+
+from __future__ import annotations
+
+import collections
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable, Dict, Iterator, Sequence, Union
+
+import numpy as np
+import torch
+
+from tacorl_tpu_torch.utils import resolve_device
+
+__all__ = ["collate", "DataLoader", "device_prefetch", "DevicePut", "tree_map"]
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    """``fn`` over the leaves of a nested dict."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def collate(items: Sequence[Dict]) -> Dict:
+    """Stack a list of sample dicts into a dict-of-arrays batch (recursive)."""
+    first = items[0]
+    if isinstance(first, dict):
+        return {k: collate([it[k] for it in items]) for k in first}
+    return np.stack(items)
+
+
+def _pinned(x: np.ndarray) -> torch.Tensor:
+    """A page-locked copy of ``x`` (the copy runs without the GIL)."""
+    src = torch.from_numpy(x)
+    return torch.empty_like(src, pin_memory=True).copy_(src)
+
+
+class DataLoader:
+    """Iterates shuffled (or sequential) batches of ``dataset.sample(idx, rng)``
+    items. ``percentage`` keeps the leading fraction of indices, matching the
+    reference's Subset behavior (basic_data_module.py:111-123)."""
+
+    def __init__(
+        self,
+        dataset: Any,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        drop_last: bool = True,
+        percentage: float = 1.0,
+        prefetch: int = 2,
+        num_threads: int = 2,
+        pin_memory: bool = False,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self.drop_last = drop_last
+        self.n = int(len(dataset) * percentage)
+        self.prefetch = prefetch
+        self.num_threads = num_threads
+        self.pin_memory = pin_memory
+        self.epoch = 0
+
+    def __len__(self) -> int:
+        if self.drop_last:
+            return self.n // self.batch_size
+        return (self.n + self.batch_size - 1) // self.batch_size
+
+    def _index_order(self) -> np.ndarray:
+        order = np.arange(self.n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + self.epoch).shuffle(order)
+        return order
+
+    def __iter__(self) -> Iterator[Dict]:
+        order = self._index_order()
+        self.epoch += 1
+        epoch = self.epoch
+        batches = [
+            order[i : i + self.batch_size]
+            for i in range(0, self.n, self.batch_size)
+        ]
+        if self.drop_last:
+            batches = [b for b in batches if len(b) == self.batch_size]
+        pin = self.pin_memory
+
+        def produce(batch_idx: int, indices: np.ndarray) -> Dict:
+            # packed-storage datasets expose a native batched gather
+            if getattr(self.dataset, "supports_batch", lambda: False)():
+                rng = np.random.default_rng((self.seed, epoch, batch_idx))
+                batch = self.dataset.sample_batch(indices, rng)
+            else:
+                items = []
+                for idx in indices:
+                    rng = np.random.default_rng((self.seed, epoch, batch_idx, int(idx)))
+                    items.append(self.dataset.sample(int(idx), rng))
+                batch = collate(items)
+            return tree_map(_pinned, batch) if pin else batch
+
+        if self.prefetch <= 0:
+            for bi, b in enumerate(batches):
+                yield produce(bi, b)
+            return
+
+        if self.num_threads > 1:
+            # pooled producers (reference: num_workers DataLoader processes,
+            # basic_data_module.py:132-158); threads suffice because the
+            # gathers, npz decodes and pinning copies release the GIL, and
+            # the per-batch RNG keys make the values independent of the pool
+            yield from self._iter_pooled(batches, produce)
+            return
+
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def worker():
+            try:
+                for bi, b in enumerate(batches):
+                    if stop.is_set():
+                        return
+                    q.put(produce(bi, b))
+            except Exception as e:  # surface loader errors to the consumer
+                q.put(e)
+            finally:
+                q.put(None)
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if item is None:
+                    return
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
+
+    def _iter_pooled(self, batches, produce) -> Iterator[Dict]:
+        window = self.prefetch + self.num_threads
+        pool = ThreadPoolExecutor(max_workers=self.num_threads)
+        try:
+            pending: "collections.deque" = collections.deque()
+            it = iter(enumerate(batches))
+            exhausted = False
+            while True:
+                while not exhausted and len(pending) < window:
+                    try:
+                        bi, b = next(it)
+                    except StopIteration:
+                        exhausted = True
+                        break
+                    pending.append(pool.submit(produce, bi, b))
+                if not pending:
+                    return
+                yield pending.popleft().result()
+        finally:
+            # the consumer may abandon the iterator early: do not block on
+            # the queued produce() calls
+            pool.shutdown(wait=False, cancel_futures=True)
+
+
+class _OnDevice:
+    """A batch whose copies were queued on the side stream, and the event
+    recorded after them."""
+
+    __slots__ = ("tree", "event")
+
+    def __init__(self, tree, event):
+        self.tree, self.event = tree, event
+
+
+class DevicePut:
+    """``put_fn`` moving a nested batch (numpy arrays or pinned tensors) to
+    ``device``; see the module docstring."""
+
+    def __init__(self, device: Union[str, torch.device] = "cuda"):
+        self.device = resolve_device(device)
+        self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
+
+    def __call__(self, batch: Any) -> Any:
+        if self.stream is None:
+            return tree_map(torch.as_tensor, batch)
+        with torch.cuda.stream(self.stream):
+            tree = tree_map(
+                lambda x: torch.as_tensor(x).to(self.device, non_blocking=True), batch
+            )
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return _OnDevice(tree, event)
+
+    def ready(self, put: Any) -> Any:
+        """The batch, usable on the current stream."""
+        if not isinstance(put, _OnDevice):
+            return put
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(put.event)
+        tree_map(lambda t: t.record_stream(stream), put.tree)
+        return put.tree
+
+
+def device_prefetch(iterator: Iterator, put_fn: Callable[[Any], Any], depth: int = 1):
+    """Keep ``depth`` batches in flight on the device: ``put_fn`` runs on the
+    next host batch while the current device batch computes; a ``put_fn``
+    with a ``ready`` method gets each batch back through it as it is handed
+    out."""
+    ready = getattr(put_fn, "ready", lambda b: b)
+    buf = collections.deque()
+    for batch in iterator:
+        buf.append(put_fn(batch))
+        if len(buf) > depth:
+            yield ready(buf.popleft())
+    while buf:
+        yield ready(buf.popleft())

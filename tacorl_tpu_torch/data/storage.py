@@ -1,5 +1,6 @@
 """Episode storage backends (a copy of tacorl_tpu/data/storage.py; the
-batched native reads wait for ``data/native.py``).
+batched reads of packed storage go through the native loader,
+``data/native.py``).
 
 Two on-disk formats:
 
@@ -144,6 +145,12 @@ class PackedStorage:
 
     # -- native batched paths --------------------------------------------------
 
+    def _rows_of(self, steps: Sequence[int]) -> np.ndarray:
+        rows = np.searchsorted(self.steps, np.asarray(steps, dtype=np.int64))
+        if np.any(rows >= len(self.steps)) or np.any(self.steps[rows] != steps):
+            raise KeyError("step(s) not in packed storage")
+        return rows
+
     def read_window_batch(
         self,
         starts: Sequence[int],
@@ -151,20 +158,24 @@ class PackedStorage:
         keys: Sequence[str],
         pad_rows: int = 0,
     ) -> Dict[str, np.ndarray]:
-        """B windows in one multithreaded gather: needs the native loader
-        (``data/native.py``), which is not ported yet (ROADMAP Queue 1,
-        item 6)."""
-        raise NotImplementedError(
-            "read_window_batch needs data/native.py, not ported yet (ROADMAP Queue 1, item 6)"
-        )
+        """B windows in one multithreaded gather (``csrc/episode_loader.cpp``
+        through ``data/native.py``); padding repeats each window's final
+        row."""
+        from tacorl_tpu_torch.data.native import gather_windows
+
+        rows = self._rows_of(starts)
+        return {
+            k: gather_windows(self._arrays[k], rows, window, pad_rows)
+            for k in keys
+        }
 
     def read_frame_batch(
         self, steps: Sequence[int], keys: Sequence[str]
     ) -> Dict[str, np.ndarray]:
-        """As ``read_window_batch``: waits for ROADMAP Queue 1, item 6."""
-        raise NotImplementedError(
-            "read_frame_batch needs data/native.py, not ported yet (ROADMAP Queue 1, item 6)"
-        )
+        from tacorl_tpu_torch.data.native import gather_rows
+
+        rows = self._rows_of(steps)
+        return {k: gather_rows(self._arrays[k], rows) for k in keys}
 
 
 def pack_frames(

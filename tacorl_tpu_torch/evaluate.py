@@ -60,22 +60,16 @@ def build_agent_and_manager(module, state, cfg):
     return agent, manager
 
 
-def _step(epoch):
-    if epoch == "best":
-        raise NotImplementedError(
-            "epoch=best needs the checkpoint's best_step, not ported yet (ROADMAP Queue 1, item 6)"
-        )
-    return int(epoch)
-
-
 def main(argv=None):
     overrides = list(argv if argv is not None else sys.argv[1:])
     cfg = compose(CONFIG_DIR, "evaluate", overrides)
     device = resolve_device(cfg.get("device", "cuda"))
 
+    # a step number, -1 for the latest, or "best" (the manager's best_step)
+    epoch = cfg.get("epoch", -1)
     module, state = load_module_from_checkpoint(
         cfg["module_path"],
-        step=_step(cfg.get("epoch", -1)),
+        step=epoch if epoch == "best" else int(epoch),
         # `+overwrite_module_cfg.play_lmp_dir=...` re-points the grafted LMP
         # run at eval time (reference README.md:93-96)
         overwrite_cfg=cfg.get("overwrite_module_cfg") or None,

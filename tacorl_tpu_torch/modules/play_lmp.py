@@ -4,13 +4,15 @@ tacorl_tpu/modules/play_lmp.py).
 A LateFusion encoder embeds the window, the plan-recognition posterior and
 the plan-proposal prior define a balanced KL, and an RNN action decoder
 scores actions with a discretized-logistic-mixture NLL. The train step runs
-augmentation -> loss -> backward -> Adam eagerly on the module's device.
+augmentation -> loss -> backward -> Adam eagerly on the module's device;
+the val step computes the loss metrics under the evaluation transforms.
 
-Randomness enters as data: the train step takes optional explicit draws
-(the DrQ shifts and jitter factors per image modality, the posterior's
-eps); what is not given is drawn from the module's ``torch.Generator``.
-Dropout (p = 0.01 in the posterior by default) draws from torch's global
-RNG, which takes no generator.
+Randomness enters as data: the steps take optional explicit draws (the DrQ
+shifts and jitter factors per image modality, the posterior's eps, the
+prior's ``pp_eps`` in the val step); what is not given is drawn from the
+module's ``torch.Generator``. Dropout (the posterior's) draws from the
+device's default generator, which takes no generator argument; the trainer
+seeds both per step (``core/trainer.py``).
 """
 
 from __future__ import annotations
@@ -145,9 +147,14 @@ class PlayLMPNet(nn.Module):
         kl_beta: float,
         eps: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
-    ) -> Tuple[Tensor, Dict[str, Tensor]]:
+        sample_pp: bool = False,
+        pp_eps: Optional[Tensor] = None,
+    ) -> Tuple[Tensor, Dict[str, Tensor], Optional[Tensor]]:
         """The ELBO. ``eps`` (B, latent_plan_dim) is the posterior's
-        standard-normal draw. Returns (total_loss, metrics)."""
+        standard-normal draw. Returns (total_loss, metrics, sampled_plan_pp):
+        with ``sample_pp`` a plan sampled from the proposal prior (its
+        standard normal ``pp_eps``, JAX's k_pp), else None (the JAX train
+        step discards it)."""
         emb, pp_dist, pr_dist, lat_goal = self.process_batch(states)
         kl_loss = self.compute_kl_loss(pr_dist, pp_dist)
         kl_scaled = kl_loss * kl_beta
@@ -165,7 +172,8 @@ class PlayLMPNet(nn.Module):
             "gripper_accuracy": grip_acc,
             "total_loss": total,
         }
-        return total, metrics
+        sampled_plan_pp = pp_dist.sample(generator, eps=pp_eps) if sample_pp else None
+        return total, metrics, sampled_plan_pp
 
     # -- rollout-time interfaces (used by the evaluation agents) -----------
 
@@ -354,7 +362,7 @@ class PlayLMPModule(AlgorithmModule):
                 actions = torch.as_tensor(batch["actions"]).to(device, torch.float32)
             state.optimizer.zero_grad(set_to_none=True)
             with record_function("play_lmp/loss"):
-                total, metrics = net.compute_loss(
+                total, metrics, _ = net.compute_loss(
                     states, actions, float(scalars["kl_beta"]), eps=eps, generator=generator
                 )
             with record_function("play_lmp/backward"):
@@ -370,3 +378,38 @@ class PlayLMPModule(AlgorithmModule):
             return state, {k: v.detach() for k, v in metrics.items()}
 
         return train_step
+
+    def make_val_step(self):
+        net, transforms, generator, device = (
+            self.net, self.transforms, self.generator, self.device
+        )
+
+        def val_step(
+            state: TrainState,
+            batch: Dict[str, Any],
+            scalars: Optional[Dict[str, float]] = None,
+            *,
+            eps: Optional[Tensor] = None,
+            pp_eps: Optional[Tensor] = None,
+        ) -> Tuple[Dict[str, Tensor], Dict[str, Any]]:
+            """The loss metrics under the evaluation transforms, in eval
+            mode, without gradients; the outputs hold ``sampled_plan_pp``,
+            the batch's ``idx`` and, when the batch has ``state_info``, its
+            first and last frames (``state_info_initial``/``_final``).
+            ``eps``/``pp_eps`` are the posterior's and the prior's draws."""
+            scalars = self.step_scalars() if scalars is None else scalars
+            net.eval()
+            with torch.no_grad():
+                states = transforms(batch["states"], train=False)
+                actions = torch.as_tensor(batch["actions"]).to(device, torch.float32)
+                _, metrics, sampled_plan_pp = net.compute_loss(
+                    states, actions, float(scalars["kl_beta"]), eps=eps,
+                    generator=generator, sample_pp=True, pp_eps=pp_eps,
+                )
+            outputs = {"sampled_plan_pp": sampled_plan_pp, "idx": batch["idx"]}
+            if "state_info" in batch:
+                outputs["state_info_initial"] = {k: v[:, 0] for k, v in batch["state_info"].items()}
+                outputs["state_info_final"] = {k: v[:, -1] for k, v in batch["state_info"].items()}
+            return metrics, outputs
+
+        return val_step

@@ -1,20 +1,25 @@
-"""Plan-recognition posterior: the transformer variant (port of
-tacorl_tpu/networks/plan_recognition.py). state_dict keys follow the
-reference: ``position_embeddings``, ``transformer_encoder.layers.{i}.*``
+"""Plan-recognition posteriors (port of
+tacorl_tpu/networks/plan_recognition.py): the transformer and the
+bidirectional ReLU RNNs. state_dict keys follow the reference: for the
+transformer ``position_embeddings``, ``transformer_encoder.layers.{i}.*``
 (``self_attn`` in_proj/out_proj, ``linear1/2``, ``norm1/2``), ``fc``,
-``mean_fc``, ``variance_fc``."""
+``mean_fc``, ``variance_fc``; for the biRNNs ``birnn_model.*`` (torch's
+``nn.RNN`` keys, ``_reverse`` for the backward direction), ``mean_fc``,
+``variance_fc``."""
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 from torch import Tensor
 
-from tacorl_tpu_torch.core.distributions import TanhNormal
+from tacorl_tpu_torch.core.distributions import DiagNormal, TanhNormal
 from tacorl_tpu_torch.networks.layers import TorchDense, lecun_normal_
 
-__all__ = ["PlanRecognitionTransformer"]
+__all__ = ["PlanRecognitionTransformer", "PlanRecognitionBiRNN", "PlanRecognitionTanhBiRNN"]
 
 # flax LayerNorm's epsilon (torch's default is 1e-5)
 _LN_EPS = 1e-6
@@ -122,3 +127,60 @@ class PlanRecognitionTransformer(nn.Module):
         mean = self.mean_fc(x)
         std = F.softplus(self.variance_fc(x)) + self.min_std
         return TanhNormal(mean, std)
+
+
+class _BiRNN(nn.RNN):
+    """num_layers-deep bidirectional ReLU RNN, the directions concatenated
+    per layer. The JAX cells (flax ``SimpleCell``) have no recurrent bias,
+    so ``bias_hh_*`` is held at zero and frozen, as in ``StackedRNN``."""
+
+    def __init__(self, input_size: int, hidden_size: int, num_layers: int):
+        super().__init__(
+            input_size, hidden_size, num_layers, nonlinearity="relu",
+            batch_first=True, bidirectional=True,
+        )
+        for name, p in self.named_parameters():
+            if name.startswith("bias_hh"):
+                p.requires_grad_(False)
+
+    def reset_parameters(self) -> None:
+        """The JAX init: kernels uniform in +-1/sqrt(hidden), biases 0."""
+        bound = 1.0 / math.sqrt(self.hidden_size)
+        for name, p in self.named_parameters():
+            if name.startswith("bias"):
+                nn.init.zeros_(p)
+            else:
+                nn.init.uniform_(p, -bound, bound)
+
+
+class PlanRecognitionBiRNN(nn.Module):
+    """biRNN(relu) -> the final step's features -> DiagNormal posterior
+    (softplus std + min_std)."""
+
+    tanh = False
+
+    def __init__(
+        self,
+        state_dim: int,
+        latent_plan_dim: int,
+        hidden_size: int = 2048,
+        num_layers: int = 2,
+        min_std: float = 1e-4,
+    ):
+        super().__init__()
+        self.min_std = min_std
+        self.birnn_model = _BiRNN(state_dim, hidden_size, num_layers)
+        self.mean_fc = TorchDense(2 * hidden_size, latent_plan_dim)
+        self.variance_fc = TorchDense(2 * hidden_size, latent_plan_dim)
+
+    def forward(self, perceptual_emb: Tensor):
+        x = self.birnn_model(perceptual_emb)[0][:, -1]
+        mean = self.mean_fc(x)
+        std = F.softplus(self.variance_fc(x)) + self.min_std
+        return TanhNormal(mean, std) if self.tanh else DiagNormal(mean, std)
+
+
+class PlanRecognitionTanhBiRNN(PlanRecognitionBiRNN):
+    """The biRNN posterior returning a TanhNormal."""
+
+    tanh = True

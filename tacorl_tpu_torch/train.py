@@ -1,0 +1,101 @@
+"""Training entry point of the port (mirrors scripts/train.py; reference:
+scripts/train.py).
+
+Usage:
+    python -m tacorl_tpu_torch.train experiment=play_lmp_for_rl \
+        data_dir=/path/to/calvin run_dir=runs/lmp trainer.max_steps=1000
+
+Composes configs/train.yaml with the overrides, builds the datamodule, the
+module, the checkpoint manager (``ckpt_max_to_keep``, ``ckpt_monitor``,
+``ckpt_mode``) and the callbacks, and fits; the run auto-resumes from the
+latest checkpoint in ``run_dir`` and saves the composed config beside the
+checkpoints (``config.json``), which the stage-2 graft and
+``python -m tacorl_tpu_torch.evaluate`` read.
+
+The run goes on the card; ``+device=cpu`` runs it on the CPU (the shared
+configs have no ``device`` key, so it is added). A config's ``platform:``
+key (the fake experiments set ``platform: cpu``) picks a JAX backend in
+scripts/train.py and is ignored here: it never moves the port to the CPU.
+``multihost=true`` raises (data-parallel training is ROADMAP Queue 1,
+item 16).
+"""
+
+from __future__ import annotations
+
+import logging
+import sys
+from pathlib import Path
+from typing import Sequence
+
+from tacorl_tpu_torch.config import compose, get_class, instantiate
+from tacorl_tpu_torch.core.checkpoint import CheckpointManager
+from tacorl_tpu_torch.core.logging import MetricsSink
+from tacorl_tpu_torch.core.trainer import Trainer
+from tacorl_tpu_torch.data.datamodule import BasicDataModule
+from tacorl_tpu_torch.utils import resolve_device
+
+CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
+
+
+def build_callbacks(cfg: dict) -> list:
+    callbacks = []
+    for cb_cfg in (cfg.get("callbacks") or {}).values():
+        if isinstance(cb_cfg, dict) and "_target_" in cb_cfg:
+            callbacks.append(instantiate(cb_cfg))
+    return callbacks
+
+
+def main(argv=None, callbacks: Sequence = ()) -> Trainer:
+    """Compose, build and fit; ``callbacks`` are added after the
+    configured ones. Returns the trainer."""
+    overrides = list(argv if argv is not None else sys.argv[1:])
+    cfg = compose(CONFIG_DIR, "train", overrides)
+    device = resolve_device(cfg.get("device", "cuda"))
+    if cfg.get("multihost"):
+        raise NotImplementedError(
+            "multihost training is not ported yet (ROADMAP Queue 1, item 16)"
+        )
+
+    dm_cfg = dict(cfg["datamodule"])
+    dm_cls = get_class(dm_cfg.pop("_target_")) if "_target_" in dm_cfg else BasicDataModule
+    datamodule = dm_cls(**dm_cfg)
+
+    # statistics.yaml action bounds override the configured defaults
+    # (reference: action_decoder_logistic.py:140-158)
+    stats = getattr(datamodule, "statistics", None)
+    if stats and "act_max_bound" in stats and "action_decoder" in cfg["module"]:
+        cfg["module"]["action_decoder"]["act_max_bound"] = stats["act_max_bound"]
+        cfg["module"]["action_decoder"]["act_min_bound"] = stats["act_min_bound"]
+
+    module_cls = get_class(cfg["module"]["_target_"])
+    module = module_cls(cfg["module"], full_config=cfg, device=device)
+
+    run_dir = Path(cfg["run_dir"]).expanduser()
+    ckpt = CheckpointManager(
+        run_dir,
+        max_to_keep=int(cfg.get("ckpt_max_to_keep", 3)),
+        monitor=cfg.get("ckpt_monitor", "validation/total_loss"),
+        mode=cfg.get("ckpt_mode", "min"),
+        config=cfg,
+    )
+    sink = MetricsSink(run_dir, **(cfg.get("logger") or {}))
+    trainer = Trainer(
+        ckpt_manager=ckpt,
+        sink=sink,
+        callbacks=build_callbacks(cfg) + list(callbacks),
+        seed=int(cfg.get("seed", 0)),
+        device=device,
+        **dict(cfg.get("trainer") or {}),
+    )
+    try:
+        trainer.fit(module, datamodule, resume=bool(cfg.get("resume", True)))
+    finally:
+        sink.close()
+    return trainer
+
+
+if __name__ == "__main__":
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s %(levelname)s %(message)s"
+    )
+    main()

@@ -109,7 +109,30 @@ def goal_encoder_state_dict(p: Mapping) -> StateDict:
     return sd
 
 
+def _birnn_posterior(p: Mapping) -> StateDict:
+    """``PlanRecognition(Tanh)BiRNN``: the cells ``SimpleCell_{2l}`` (layer
+    l forward) and ``SimpleCell_{2l+1}`` (backward) -> ``birnn_model``;
+    ``TorchDense_0/1`` -> ``mean_fc``/``variance_fc``."""
+    sd: StateDict = {}
+    cells = p["_BiRNN_0"]
+    i = 0
+    while f"SimpleCell_{i}" in cells:
+        cell = cells[f"SimpleCell_{i}"]
+        key = f"l{i // 2}" + ("_reverse" if i % 2 else "")
+        sd[f"birnn_model.weight_ih_{key}"] = _t(np.asarray(cell["i"]["kernel"]).T)
+        sd[f"birnn_model.bias_ih_{key}"] = _t(cell["i"]["bias"])
+        wh = np.asarray(cell["h"]["kernel"]).T
+        sd[f"birnn_model.weight_hh_{key}"] = _t(wh)
+        sd[f"birnn_model.bias_hh_{key}"] = torch.zeros(wh.shape[0])
+        i += 1
+    sd.update(_dense(p["TorchDense_0"], "mean_fc."))
+    sd.update(_dense(p["TorchDense_1"], "variance_fc."))
+    return sd
+
+
 def plan_recognition_state_dict(p: Mapping) -> StateDict:
+    if "_BiRNN_0" in p:
+        return _birnn_posterior(p)
     if any(k.startswith("LayerNorm") for k in p):
         raise NotImplementedError(
             "positional/encoder LayerNorms of the posterior are not mapped yet"

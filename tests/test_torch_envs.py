@@ -143,10 +143,12 @@ def test_port_packs_frames_as_jax_does(synthetic, packed, tmp_path):
 
 @pytest.mark.parametrize("method", ["read_window_batch", "read_frame_batch"])
 def test_native_batched_reads_name_their_roadmap_item(packed, method):
-    store = storage.open_storage(packed)
-    args = ([0], 4, ["actions"]) if method == "read_window_batch" else ([0], ["actions"])
-    with pytest.raises(NotImplementedError, match="item 6"):
-        getattr(store, method)(*args)
+    """The batched reads, once stubs naming ROADMAP item 6, now gather
+    through the native loader as the JAX package's do."""
+    store, ref = storage.open_storage(packed), jax_storage.open_storage(packed)
+    start = int(ref.steps[0])
+    args = ([start, start + 3], 4, ["actions"]) if method == "read_window_batch" else ([start], ["actions"])
+    assert_same(getattr(store, method)(*args), getattr(ref, method)(*args))
 
 
 def _dir_contents(root):

@@ -204,9 +204,12 @@ def test_entry_point_writes_what_scripts_evaluate_writes(lmp_dirs, eval_data, tm
 
 
 def test_entry_point_refuses_best_epoch(lmp_dirs, eval_data, tmp_path):  # noqa: F811
-    args = ["+device=cpu", f"module_path={lmp_dirs[1]}", "epoch=best"]
-    with pytest.raises(NotImplementedError, match="item 6"):
-        evaluate.main(args + _common("short_horizon", eval_data, tmp_path / "x.json"))
+    """``epoch=best``, refused until the checkpoint manager had best_step,
+    now scores the best kept step: here the only one, as the latest."""
+    args = ["+device=cpu", f"module_path={lmp_dirs[1]}"]
+    best = evaluate.main(args + ["epoch=best"] + _common("short_horizon", eval_data, tmp_path / "best.json"))
+    latest = evaluate.main(args + _common("short_horizon", eval_data, tmp_path / "latest.json"))
+    assert best and best == latest
 
 
 def test_entry_point_names_a_missing_env(lmp_dirs, eval_data, tmp_path):  # noqa: F811

@@ -1,8 +1,8 @@
 """The PyTorch port stands alone: importing every module of
 tacorl_tpu_torch, chip_smoke.py and kernel_ab.py pulls in neither JAX (nor flax/optax)
-nor the JAX package; and its entry points (modules, agents,
-``python -m tacorl_tpu_torch.evaluate``) refuse to run without CUDA unless
-the caller asks for the CPU."""
+nor the JAX package; and its entry points (modules, agents, the trainer and
+its device put, ``python -m tacorl_tpu_torch.evaluate`` and ``.train``)
+refuse to run without CUDA unless the caller asks for the CPU."""
 
 import json
 import shutil
@@ -62,6 +62,20 @@ def probe():
         "tacorl_tpu_torch.evaluation.manager",
         "tacorl_tpu_torch.evaluation.video",
         "tacorl_tpu_torch.evaluate",
+        "tacorl_tpu_torch.train",
+        "tacorl_tpu_torch.core.trainer",
+        "tacorl_tpu_torch.core.logging",
+        "tacorl_tpu_torch.data.native",
+        "tacorl_tpu_torch.data.knn",
+        "tacorl_tpu_torch.data.synthetic",
+        "tacorl_tpu_torch.data.play_dataset",
+        "tacorl_tpu_torch.data.loader",
+        "tacorl_tpu_torch.data.datamodule",
+        "tacorl_tpu_torch.callbacks",
+        "tacorl_tpu_torch.callbacks.base",
+        "tacorl_tpu_torch.callbacks.kl_schedule",
+        "tacorl_tpu_torch.callbacks.horizon",
+        "tacorl_tpu_torch.callbacks.rollout",
     ],
 )
 def test_probe_imported_every_module(probe, name):
@@ -101,12 +115,14 @@ def _cql_cfg():
     "entry",
     ["resolve_device", "DeviceTransforms", "PlayLMPModule", "CQLModule", "TACORLModule",
      "load_module_from_checkpoint", "LatentPlanAgent", "TACORLAgent", "FlatPolicyAgent",
-     "make_agent", "evaluate.main"],
+     "make_agent", "evaluate.main", "Trainer", "train.main", "DevicePut"],
 )
 def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     _no_cuda()
-    from tacorl_tpu_torch import evaluate
+    from tacorl_tpu_torch import evaluate, train
     from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
+    from tacorl_tpu_torch.core.trainer import Trainer
+    from tacorl_tpu_torch.data.loader import DevicePut
     from tacorl_tpu_torch.data.transforms import DeviceTransforms
     from tacorl_tpu_torch.evaluation import agents
     from tacorl_tpu_torch.modules.cql import CQLModule
@@ -130,6 +146,10 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "FlatPolicyAgent": lambda: agents.FlatPolicyAgent(CQLModule(_cql_cfg()), None),
         "make_agent": lambda: agents.make_agent(*load_module_from_checkpoint(tmp_path)),
         "evaluate.main": lambda: evaluate.main([f"module_path={tmp_path}", f"data_dir={tmp_path}"]),
+        "Trainer": lambda: Trainer(),
+        "train.main": lambda: train.main([f"data_dir={tmp_path}", f"run_dir={tmp_path}"]),
+        # the prefetch's put_fn
+        "DevicePut": lambda: DevicePut(),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()
@@ -279,6 +299,39 @@ def test_library_name_covers_the_shared_headers(monkeypatch, tmp_path):
     source.write_text(source.read_text() + "\n// edited\n")
     assert _cuda_build.library_path("jitter_normalize") == after["jitter_normalize"]
     assert _cuda_build.library_path("shift_jitter") != after["shift_jitter"]
+
+
+def test_train_command_raises_without_cuda(tmp_path):
+    """``python -m tacorl_tpu_torch.train`` without ``+device=cpu`` runs on
+    the card, so without one it fails before it builds anything."""
+    _no_cuda()
+    out = subprocess.run(
+        [sys.executable, "-m", "tacorl_tpu_torch.train", f"data_dir={tmp_path}",
+         f"run_dir={tmp_path / 'run'}"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert "CUDA is not available" in out.stderr
+    assert not (tmp_path / "run").exists()
+
+
+@pytest.mark.parametrize("compiler", ["missing", "failing"])
+def test_episode_loader_build_failure_raises(monkeypatch, tmp_path, compiler):
+    """A missing or failing g++ raises: packed storage has no numpy
+    fallback, and no half-built library is left behind."""
+    import numpy as np
+
+    from tacorl_tpu_torch.data import native
+
+    cxx = str(tmp_path / "no-such-g++") if compiler == "missing" else shutil.which("false")
+    monkeypatch.setattr(native, "CXX", cxx)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native, "_lib", None)
+    with pytest.raises(RuntimeError, match="build"):
+        native.get_native_lib()
+    with pytest.raises(RuntimeError, match="build"):
+        native.gather_rows(np.zeros((4, 3), np.uint8), [1])
+    assert not list((tmp_path / "build").glob("*"))
 
 
 def test_chip_smoke_fails_without_cuda(capsys):

@@ -1,0 +1,168 @@
+"""``python -m tacorl_tpu_torch.train`` on the CPU: the port composes
+configs/train.yaml as the JAX package does, chains stage 1 into stage 2 on
+synthetic data at tiny widths, trains play_lmp_fake (the biRNN posterior,
+held against the JAX one) with the rollout callback feeding the checkpoint
+monitor, and never reads a config's ``platform:`` as a request for the
+CPU."""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from tacorl_tpu import config as jax_config
+from tacorl_tpu.networks import plan_recognition as jax_pr
+from tacorl_tpu_torch import config, evaluate, train
+from tacorl_tpu_torch.core.checkpoint import CheckpointManager
+from tacorl_tpu_torch.data.expert_play import generate_expert_play
+from tacorl_tpu_torch.data.storage import pack_frames
+from tacorl_tpu_torch.data.synthetic import generate_synthetic_calvin
+from tacorl_tpu_torch.networks import plan_recognition as pr
+from tacorl_tpu_torch.utils.convert import plan_recognition_state_dict
+
+REPO = Path(__file__).resolve().parent.parent
+CONFIGS = REPO / "configs"
+
+
+@pytest.mark.parametrize("experiment", ["play_lmp_for_rl", "tacorl", "play_lmp_fake"])
+def test_compose_matches_jax_on_train_yaml(experiment):
+    overrides = [f"experiment={experiment}", "data_dir=/data", "play_lmp_dir=/runs/lmp",
+                 "trainer.max_steps=7", "callbacks/kl_schedule=linear"]
+    got = config.compose(CONFIGS, "train", overrides)
+    assert got == jax_config.compose(CONFIGS, "train", overrides)
+    assert got["trainer"]["max_steps"] == 7
+    assert config.compose(CONFIGS, "train", overrides + ["+device=cpu"]) == {**got, "device": "cpu"}
+
+
+@pytest.mark.parametrize("cls", ["PlanRecognitionBiRNN", "PlanRecognitionTanhBiRNN"])
+def test_birnn_posterior_matches_jax(cls):
+    x = np.random.RandomState(0).randn(3, 6, 10).astype(np.float32)
+    jnet = getattr(jax_pr, cls)(state_dim=10, latent_plan_dim=4, hidden_size=12, num_layers=2)
+    variables = jnet.init(jax.random.key(0), jnp.asarray(x))
+    want = jnet.apply(variables, jnp.asarray(x))
+    net = getattr(pr, cls)(10, 4, hidden_size=12, num_layers=2)
+    net.load_state_dict(plan_recognition_state_dict(jax.tree.map(np.asarray, variables["params"])))
+    got = net(torch.from_numpy(x))
+    assert type(got).__name__ == type(want).__name__
+    np.testing.assert_allclose(got.mean.detach().numpy(), np.asarray(want.mean), atol=1e-5)
+    np.testing.assert_allclose(got.std.detach().numpy(), np.asarray(want.std), atol=1e-5)
+    assert not any(p.requires_grad for n, p in net.named_parameters() if n.startswith("birnn_model.bias_hh"))
+
+
+TINY = [
+    "+device=cpu",
+    "module.perceptual_encoder.networks.rgb_static.latent_dim=16",
+    "module.perceptual_encoder.networks.rgb_static.hidden_dim=32",
+    "module.goal_encoder.hidden_size=32",
+    "module.plan_recognition.num_heads=4", "module.plan_recognition.num_layers=1",
+    "module.plan_recognition.encoder_hidden_size=32", "module.plan_recognition.fc_hidden_size=32",
+    "module.plan_proposal.policy.hidden_dim=32",
+    "module.action_decoder.hidden_size=32", "module.action_decoder.num_layers=1",
+    "module.action_decoder.n_mixtures=4",
+    "transforms.rgb_static.size=[48,48]", "transforms.rgb_static.pad=2",
+    "datamodule.batch_size=8", "datamodule.val_percentage=1.0",
+    "datamodule.dataset.min_window_size=4", "datamodule.dataset.max_window_size=8",
+    "trainer.log_every_n_steps=1",
+]
+
+
+@pytest.fixture(scope="module")
+def calvin(tmp_path_factory):
+    root = tmp_path_factory.mktemp("calvin")
+    generate_synthetic_calvin(root / "frames", 2, 1, 24, 56,
+                              keys=("rgb_static", "robot_obs", "scene_obs", "rel_actions_world"))
+    for split in ("training", "validation"):
+        pack_frames(root / "frames" / split, root / "packed" / split)
+    return root / "packed"
+
+
+def _rows(run):
+    return [json.loads(line) for line in (run / "metrics.jsonl").read_text().splitlines()]
+
+
+def test_stage_one_chains_into_stage_two(calvin, tmp_path):
+    lmp, rl = tmp_path / "lmp", tmp_path / "tacorl"
+    t1 = train.main(TINY + ["experiment=play_lmp_for_rl", f"data_dir={calvin}", f"run_dir={lmp}",
+                            "trainer.max_steps=5", "ckpt_max_to_keep=2"])
+    assert t1.device == torch.device("cpu") and t1.global_step == 5
+    assert CheckpointManager(lmp).all_steps() == [4, 5]  # an epoch is 4 steps; the stop saves too
+    saved = json.loads((lmp / "config.json").read_text())
+    assert saved["module"]["action_decoder"]["act_max_bound"] == [1.0] * 7  # statistics.yaml
+    rows = _rows(lmp)
+    assert [r["step"] for r in rows if "train/total_loss" in r] == [1, 2, 3, 4, 5]
+    assert all(np.isfinite(r["train/total_loss"]) for r in rows if "train/total_loss" in r)
+    assert sum("validation/total_loss" in r for r in rows) == 2
+
+    t2 = train.main(TINY + ["experiment=tacorl", f"data_dir={calvin}", f"run_dir={rl}",
+                            f"play_lmp_dir={lmp}", "trainer.max_steps=2",
+                            "module.q_network.hidden_dim=16", "+datamodule.dataset.num_nn=8"])
+    assert t2.global_step == 2 and type(t2.callbacks[0]).__name__ == "IncreaseHorizonLinear"
+    keys = set().union(*_rows(rl))
+    assert {"train/q1_loss", "train/action_loss", "validation/q1_loss"} <= keys
+    # the datamodule drew goals from both strategies
+    assert set(t2.datamodule.train_dataset.goal_strategy_prob) == {"geometric", "similar_robot_obs"}
+
+
+def test_play_lmp_fake_trains_with_the_rollout_monitor(tmp_path):
+    data = tmp_path / "play"
+    generate_expert_play(data, n_train_episodes=2, n_val_episodes=2, seed=3)
+    run = tmp_path / "run"
+    trainer = train.main([
+        "+device=cpu", "experiment=play_lmp_fake", f"data_dir={data}", f"run_dir={run}",
+        "trainer.max_epochs=2", "trainer.log_every_n_steps=1", "datamodule.batch_size=8",
+        "module.plan_recognition.hidden_size=16", "module.action_decoder.hidden_size=16",
+        "module.perceptual_encoder.networks.rgb_static.hidden_dim=16",
+        "callbacks.rollout.num_rollouts_per_task=1", "env.max_episode_steps=4",
+    ])
+    assert type(trainer.callbacks[-1]).__name__ == "RolloutCallback"
+    accs = [r["val_accuracy"] for r in _rows(run) if "val_accuracy" in r]
+    assert len(accs) == 2
+    manager = CheckpointManager(run, monitor="val_accuracy", mode="max")
+    assert manager.best_step() in manager.all_steps()
+    results = evaluate.main([
+        "+device=cpu", f"module_path={run}", "epoch=best", f"data_dir={data / 'validation'}",
+        "min_seq_len=1", "max_seq_len=400", "max_rollouts=1", "plan_duration=2",
+        "env.max_episode_steps=4", f"filename={tmp_path / 'best.json'}",
+    ])
+    assert results and all(0.0 <= r["accuracy"] <= 1.0 for r in results.values())
+
+
+def test_platform_key_does_not_pick_the_cpu(tmp_path):
+    """play_lmp_fake sets ``platform: cpu`` (a JAX backend choice): the port
+    still runs on the card, so without one it raises."""
+    if torch.cuda.is_available():
+        pytest.skip("this check is about a machine without CUDA")
+    cfg = config.compose(CONFIGS, "train", ["experiment=play_lmp_fake"])
+    assert cfg["platform"] == "cpu" and "device" not in cfg
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        train.main(["experiment=play_lmp_fake", f"data_dir={tmp_path}", f"run_dir={tmp_path}"])
+
+
+@pytest.mark.parametrize(
+    "override, error, match",
+    [
+        ("+multihost=true", NotImplementedError, "item 16"),
+        ("trainer.steps_per_call=4", NotImplementedError, "item 6"),
+    ],
+)
+def test_unported_options_raise(calvin, tmp_path, override, error, match):
+    with pytest.raises(error, match=match):
+        train.main(TINY + ["experiment=play_lmp_for_rl", f"data_dir={calvin}",
+                           f"run_dir={tmp_path}", override])
+
+
+def test_train_command_runs(calvin, tmp_path):
+    """The command a user runs."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "tacorl_tpu_torch.train", *TINY, "experiment=play_lmp_for_rl",
+         f"data_dir={calvin}", f"run_dir={tmp_path}", "trainer.max_steps=1"],
+        cwd=REPO, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert CheckpointManager(tmp_path).all_steps() == [1]
