@@ -107,6 +107,26 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 2 epochs with RolloutCallback scoring val_accuracy, the
                 checkpoint monitor on it, then
                 ``tacorl_tpu_torch.evaluate.main`` with epoch=best on the card.
+ 20. reference_cql  one flat CQL train step and one validation step on the
+                card and on the CPU from the same weights, batch and draws
+                (dropout masks included), at the full widths of three
+                configs: experiment=cql_d4rl's ``state_based`` module,
+                experiment=cql_fake_state, and experiment=cql_fake with
+                MC-dropout critics; every metric within rtol 1e-4.
+ 21. train_cql  experiment=cql_fake with callbacks/increase_horizon=
+                uncertainty and MC-dropout critics through the trainer on a
+                small packed flagship-recipe set from ``make_flagship_data``
+                (64x64 frames, 12 steps of 32 an epoch, the
+                rollout monitor on): 2 epochs with the measurements of phase
+                16 but the step beside the loader, 4 jitter_normalize
+                launches per train step (observation,
+                goal, next observation, next goal), the horizon's growth,
+                then a resume that reloads it from callbacks_state.json.
+ 22. train_cql_state  experiment=cql_fake_state at its full width on the same
+                set: 2 epochs with the rollout monitor and the measurements
+                of phase 16 (5 steps each beside the loader), 0
+                jitter_normalize launches, then
+                ``evaluate`` epoch=best with the vector env.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -123,17 +143,21 @@ import sys
 import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from tacorl_tpu_torch.callbacks.base import Callback
+from tacorl_tpu_torch.config import compose
 from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
 from tacorl_tpu_torch.data.expert_play import generate_expert_play
+from tacorl_tpu_torch.data.storage import load_ep_start_end_ids
 from tacorl_tpu_torch.envs.fake_calvin import FakeCalvinEnv
 from tacorl_tpu_torch.evaluation.agents import make_agent
 from tacorl_tpu_torch.evaluation.manager import EvaluationManager
 from tacorl_tpu_torch.evaluation.rollout_generator import SingleTaskRolloutGenerator
+from tacorl_tpu_torch.modules.cql import CQLModule
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
 from tacorl_tpu_torch.modules.tacorl import FROZEN, TACORLModule
 from tacorl_tpu_torch.ops import image_aug
@@ -1631,13 +1655,17 @@ def _report_trainer(tag, card, trainer, probe, bare_ms, launches_per_step):
     ms = probe.ms_per_step()
     epoch1 = trainer.batch_wait_ms[-probe.epoch_steps[-1]:]
     h2d_ms, nbytes = _h2d_ms(trainer)
-    val_s = [r for r in _metrics_rows(trainer.ckpt.dir) if any(k.startswith("validation/") for k in r)]
+    # the val pass's rows (a rollout callback's rows are validation/<task>/...)
+    val_s = [r for r in _metrics_rows(trainer.ckpt.dir)
+             if any(k.startswith("validation/") and k.count("/") == 1 for k in r)]
     _check(len(val_s) == len(probe.epoch_steps), f"{tag}: {len(val_s)} val passes in {len(probe.epoch_steps)} epochs")
     saves = ", ".join(f"step {s}: {b / 1e6:.1f} MB in {t:.0f} ms" for s, b, t in trainer.saves)
+    bare = (f"bare step (same call) {bare_ms:.3f} ms ({1e3 / bare_ms:.2f} steps/s)" if bare_ms
+            else "no bare step of this config")
     print(
         f"[{tag}] {probe.steps_seen} steps in {len(probe.epoch_steps)} epochs {probe.epoch_steps}: "
         f"{ms:.3f} ms/step ({1e3 / ms:.2f} steps/s) over steps {TIMED_FROM + 1}-{TIMED_TO} of the "
-        f"second epoch, bare step (same call) {bare_ms:.3f} ms ({1e3 / bare_ms:.2f} steps/s) | "
+        f"second epoch, {bare} | "
         f"loader wait per step (second epoch) median {statistics.median(epoch1):.3f} ms, max "
         f"{max(epoch1):.3f} ms | H2D of one pinned batch ({nbytes / 1e6:.1f} MB) {h2d_ms:.3f} ms "
         f"({nbytes / h2d_ms / 1e6:.2f} GB/s) | {train_loss_line(rows)} | {changed}/{len(after)} "
@@ -1726,7 +1754,8 @@ def _step_contention(tag: str, card: str, trainer, probe, steps: int = 10, warmu
 
 
 def train_loss_line(rows) -> str:
-    key = "train/total_loss" if "train/total_loss" in rows[0] else "train/q1_loss"
+    key = "train/total_loss" if any("train/total_loss" in r for r in rows) else "train/q1_loss"
+    rows = [r for r in rows if key in r]
     return f"{key} {rows[0][key]:.4f} (step {rows[0]['step']}) -> {rows[-1][key]:.4f} (step {rows[-1]['step']})"
 
 
@@ -1864,6 +1893,235 @@ def phase_train_callback(card: str, root: str) -> None:
     torch.cuda.empty_cache()
 
 
+# -- flat goal-conditioned CQL --------------------------------------------------------------
+
+CONFIG_DIR = str(Path(__file__).resolve().parent / "configs")
+# the three flat-CQL configs at their composed widths
+FLAT_CASES = {
+    "state_based": ["experiment=cql_d4rl"],
+    "cql_fake_state": ["experiment=cql_fake_state"],
+    "cql_fake_dropout": ["experiment=cql_fake", "module.q_network.with_dropout=true"],
+}
+FLAT_BATCH, FLAT_HW = 32, 64  # the experiments' batch size, the fake env's frames
+CQL_LAUNCHES_PER_STEP = 4  # rgb_static of observation, goal, next observation, next goal
+
+
+def _flat_module_cfg(overrides) -> dict:
+    return compose(CONFIG_DIR, "train", list(overrides))["module"]
+
+
+def _flat_batch(module, seed: int) -> dict:
+    """A transition batch in the layout the module reads: flat arrays for
+    a state-based module, else observation/goal dicts of its modalities."""
+    rs, bs, cfg = np.random.RandomState(seed), FLAT_BATCH, module.cfg
+    if cfg.get("state_based"):
+        dim = int(cfg["state_dim"]) + int(cfg.get("goal_dim", 2))
+        obs, next_obs = (rs.randn(bs, dim).astype(np.float32) for _ in range(2))
+    else:
+        dims = cfg.get("vector_dims", {})
+
+        def frame():
+            return {m: rs.randn(bs, dims[m]).astype(np.float32) if m in dims
+                    else rs.randint(0, 256, (bs, FLAT_HW, FLAT_HW, 3), dtype=np.uint8)
+                    for m in module.obs_modalities}
+
+        goal = frame()
+        obs, next_obs = {"observation": frame(), "goal": goal}, {"observation": frame(), "goal": goal}
+    reached = (rs.rand(bs) < 0.2).astype(np.float32)
+    return {"observations": obs, "actions": rs.uniform(-1, 1, (bs, module.action_dim)).astype(np.float32),
+            "next_observations": next_obs, "rewards": reached, "terminals": reached}
+
+
+def _flat_draws(module, g) -> dict:
+    """Every draw of one CQL update from the CPU generator ``g``: the actor
+    samples, the random actions, the augmentation of each image leaf (by
+    the module's transform config) and the MC-dropout masks."""
+    bs, n, a = FLAT_BATCH, module.n_action_samples, module.action_dim
+    gripper = module.net.actor.actor.discrete_gripper
+
+    def actor(*lead):
+        if not gripper:
+            return {"eps": torch.randn(lead + (a,), generator=g)}
+        return {"eps": torch.randn(lead + (a - 1,), generator=g),
+                "gumbel_u": torch.rand(lead + (2,), generator=g) * (1 - 2e-6) + 1e-6}
+
+    draws = {"curr": actor(bs), "next_bellman": actor(bs), "curr_n": actor(n, bs),
+             "next_n": actor(n, bs), "rand": torch.rand((bs * n, a), generator=g) * 2.0 - 1.0}
+    if module.critic_dropout:
+        q = module.net.q1.critic.Q
+        draws["dropout"] = {rows: torch.rand((rows, q.hidden_dim), generator=g) >= q.dropout_p
+                            for rows in (bs, n * bs)}
+    images = {m: c for m, c in module.transforms.cfg.items() if c.get("kind") == "rgb"
+              and m in module.obs_modalities}
+
+    def aug():
+        return {part: {m: {
+            "shifts": torch.randint(0, 2 * int(c.get("pad", 6)) + 1, (bs, 2), generator=g),
+            "factors": sample_jitter_factors(
+                bs, g, brightness=float(c.get("brightness", 0.1)), contrast=float(c.get("contrast", 0.1)),
+                hue=float(c.get("hue", 0.02)), prob=float(c.get("jitter_prob", 1.0))),
+        } for m, c in images.items()} for part in ("observation", "goal")}
+
+    if images:
+        draws["aug_obs"], draws["aug_next_obs"] = aug(), aug()
+    return draws
+
+
+def phase_reference_cql() -> None:
+    """One flat CQL train step and one validation step per FLAT_CASES
+    config on the card and on the CPU, from the same weights, batch and
+    draws: every metric within rtol 1e-4."""
+    lines = []
+    for case, overrides in FLAT_CASES.items():
+        cfg = _flat_module_cfg(overrides)
+        results, weights = {}, None
+        for device in ("cpu", "cuda"):
+            module = CQLModule(cfg, device=device)
+            state = module.init_state(0)
+            if weights is None:
+                weights = {k: v.clone() for k, v in module.net.state_dict().items()}
+                batch = _flat_batch(module, seed=3)
+                draws = _flat_draws(module, torch.Generator().manual_seed(3))
+            module.net.load_state_dict(weights)
+            on_device = _to_device(draws, device)
+            val, _ = module.make_val_step()(state, batch, {"bc_phase": 0.0}, draws=on_device)
+            _, train = module.make_train_step()(state, batch, {"bc_phase": 0.0}, draws=on_device)
+            results[device] = {**{f"train/{k}": float(v) for k, v in train.items()},
+                               **{f"val/{k}": float(v) for k, v in val.items()}}
+        _check(set(results["cuda"]) == set(results["cpu"]), f"reference_cql {case}: metric keys")
+        worst = 0.0
+        for key, c in results["cpu"].items():
+            a = results["cuda"][key]
+            _check(np.isfinite(a) and abs(a - c) <= 1e-4 * abs(c) + 1e-6,
+                   f"reference_cql {case} {key}: cuda {a} vs cpu {c}")
+            worst = max(worst, abs(a - c) / max(abs(c), 1e-6))
+        lines.append(f"{case} {len(results['cpu'])} metrics, q1_loss {results['cuda']['train/q1_loss']:.6f} "
+                     f"vs {results['cpu']['train/q1_loss']:.6f}, largest relative difference {worst:.3g}")
+    print("[reference_cql] flat CQL train + val step, cuda vs cpu at the configs' widths, batch "
+          f"{FLAT_BATCH} (rtol 1e-4): " + "; ".join(lines), flush=True)
+
+
+def _flat_train_data(root) -> tuple:
+    """The flagship expert-play set's recipe at 8 train and 3 validation
+    episodes, packed (``make_flagship_data``); returns its root and the
+    train_percentage that makes an epoch 12 batches of 32 (400
+    transitions)."""
+    from tacorl_tpu_torch import make_flagship_data
+
+    make_flagship_data.main(f"{root}/play", n_train_episodes=8, n_val_episodes=3)
+    n = sum(int(e) - int(s) for s, e in load_ep_start_end_ids(f"{root}/play/training", True))
+    _check(n >= 416, f"flat train data: {n} transitions")
+    return f"{root}/play", 400 / n
+
+
+FLAT_ARGS = ("callbacks.rollout.num_rollouts_per_task=1",)
+
+
+class _HorizonProbe(Callback):
+    """The train dataset's goal horizon at each epoch start."""
+
+    def __init__(self):
+        self.horizons = []
+
+    def on_epoch_start(self, trainer, module, epoch):
+        self.horizons.append(trainer.datamodule.train_dataset.current_horizon)
+
+
+def phase_train_cql(card: str, data_dir: str, pct: float, run_dir: str):
+    """experiment=cql_fake with the uncertainty-gated horizon (threshold
+    raised so that every epoch grows it) and MC-dropout critics, 2 epochs of
+    12 steps, then a resume that reloads the horizon."""
+    from tacorl_tpu_torch import train
+
+    args = ["callbacks/increase_horizon=uncertainty", "callbacks.increase_horizon.std_threshold=1e9",
+            "module.q_network.with_dropout=true", f"datamodule.train_percentage={pct}", *FLAT_ARGS]
+    probe, horizon = _TrainProbe(), _HorizonProbe()
+    jitter_normalize.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(_train_args("cql_fake", data_dir, run_dir, TRAIN_STEPS, *args),
+                         callbacks=[probe, horizon])
+    wall = time.perf_counter() - t0
+    launches = jitter_normalize.launches
+    _check(type(trainer.callbacks[0]).__name__ == "IncreaseHorizonUncertainty", "train_cql: callbacks")
+    _check(trainer.global_step == TRAIN_STEPS and probe.epoch_steps == [12, 12], f"train_cql: {probe.epoch_steps}")
+    _check(launches == CQL_LAUNCHES_PER_STEP * TRAIN_STEPS, f"train_cql: jitter_normalize launched {launches} times")
+    _report_trainer("train_cql", card, trainer, probe, None, CQL_LAUNCHES_PER_STEP)
+    rows = _metrics_rows(run_dir)
+    grown = [r["train/goal_horizon"] for r in rows if "train/goal_horizon" in r]
+    stds = [r["train/Q_avg_std"] for r in rows if "train/Q_avg_std" in r]
+    saved = json.loads(open(f"{run_dir}/callbacks_state.json").read())["IncreaseHorizonUncertainty"]
+    final = trainer.datamodule.train_dataset.current_horizon
+    _check(grown == [8.0, 12.0] and final == 16 and saved == {"current_horizon": 16},
+           f"train_cql: horizon {grown} -> {final}, saved {saved}")
+    _check(all(np.isfinite(s) and s > 0 for s in stds), f"train_cql: Q_avg_std {stds}")
+    del trainer
+    torch.cuda.empty_cache()
+    resumed = _HorizonProbe()
+    trainer = train.main(_train_args("cql_fake", data_dir, run_dir, TRAIN_STEPS + RESUME_STEPS, *args),
+                         callbacks=[resumed])
+    _check(resumed.horizons[0] == 16 and trainer.global_step == TRAIN_STEPS + RESUME_STEPS,
+           f"train_cql resume: horizons {resumed.horizons}")
+    print(
+        f"[train_cql] train.main took {wall:.1f} s (2 epochs, 2 val passes with the rollout monitor, 2 "
+        f"saves) | horizon at the epoch starts {horizon.horizons}, logged {grown}, Q_avg_std "
+        f"{[round(s, 6) for s in stds]}, callbacks_state.json {saved} | resumed at step {TRAIN_STEPS}: "
+        f"horizon {resumed.horizons[0]} reloaded, {RESUME_STEPS} more steps | {card}",
+        flush=True,
+    )
+    del trainer
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_train_cql_state(card: str, data_dir: str, pct: float, run_dir: str):
+    """experiment=cql_fake_state at its full width, 2 epochs of 12 steps with
+    the rollout monitor and the linear horizon, then evaluate epoch=best."""
+    from tacorl_tpu_torch import evaluate, train
+
+    probe = _TrainProbe()
+    jitter_normalize.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(
+        _train_args("cql_fake_state", data_dir, run_dir, TRAIN_STEPS, f"datamodule.train_percentage={pct}",
+                    *FLAT_ARGS),
+        callbacks=[probe],
+    )
+    wall = time.perf_counter() - t0
+    launches = jitter_normalize.launches
+    _check(launches == 0, f"train_cql_state: jitter_normalize launched {launches} times")
+    _check(not any(".encoder." in k for k in trainer.state.net.state_dict()), "train_cql_state: encoders built")
+    _report_trainer("train_cql_state", card, trainer, probe, None, 0)
+    # a few steps: beside the loader's per-item sampling the step is slow
+    _step_contention("train_cql_state", card, trainer, probe, steps=5, warmup=1)
+    rows = _metrics_rows(run_dir)
+    accs = [r["val_accuracy"] for r in rows if "val_accuracy" in r]
+    horizons = [r["train/goal_horizon"] for r in rows if "train/goal_horizon" in r]
+    _check(len(accs) == 2 and horizons == [16.0, 24.0], f"train_cql_state: {accs}, {horizons}")
+    best = trainer.ckpt.best_step()
+    del trainer
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        results = evaluate.main([
+            f"module_path={run_dir}", "epoch=best", "eval_type=short_horizon",
+            f"data_dir={data_dir}/validation", "env.image_hw=64", "env.max_episode_steps=56",
+            "env.task_set=hard", "env.modalities=[robot_obs,scene_obs]",
+            "env.goal_modalities=[robot_obs,scene_obs]", "min_seq_len=1", "max_seq_len=64",
+            "max_rollouts=2", f"filename={tmp}/best.json",
+        ])
+        eval_s = time.perf_counter() - t1
+    _check(bool(results) and all(np.isfinite(r["accuracy"]) for r in results.values()),
+           f"train_cql_state: evaluate results {results}")
+    print(
+        f"[train_cql_state] train.main took {wall:.1f} s | val_accuracy {accs}, horizon {horizons}, "
+        f"best step {best} | evaluate epoch=best short_horizon in {eval_s:.1f} s: "
+        + ", ".join(f"{t} {r['accuracy']:.2f}" for t, r in results.items())
+        + f" | jitter_normalize launches {launches} | {card}",
+        flush=True,
+    )
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -1900,11 +2158,17 @@ def main() -> int:
         launches_train_tacorl = phase_train_tacorl(card, train_data, f"{tmp}/lmp", f"{tmp}/tacorl", tacorl_ms)
     with tempfile.TemporaryDirectory() as tmp:
         phase_train_callback(card, tmp)
+    phase_reference_cql()
+    with tempfile.TemporaryDirectory() as tmp:
+        flat_data, pct = _flat_train_data(tmp)
+        launches_cql = phase_train_cql(card, flat_data, pct, f"{tmp}/cql")
+        launches_cql_state = phase_train_cql_state(card, flat_data, pct, f"{tmp}/cql_state")
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
         "rollout": rollout["jitter_normalize"], "rollout_tacorl": rollout_tacorl["jitter_normalize"],
         "train": launches_train, "train_tacorl": launches_train_tacorl,
+        "train_cql": launches_cql, "train_cql_state": launches_cql_state,
     }
     shift["launches_by_path"] = {
         "augment": shift["launches"], "rollout": rollout["shift_jitter_normalize"],

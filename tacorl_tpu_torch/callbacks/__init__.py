@@ -1,12 +1,15 @@
 """Trainer callbacks (port of tacorl_tpu/callbacks). Exported: what is
-ported. ``IncreaseHorizonUncertainty``, ``RolloutD4RLCallback`` and
-``TSNEPlot`` wait for ROADMAP Queue 1, items 8, 14 and 17: a config that
-names one fails in ``config.get_class`` with an error that names ROADMAP."""
+ported. ``RolloutD4RLCallback`` and ``TSNEPlot`` wait for ROADMAP Queue 1,
+items 14 and 17: a config that names one fails in ``config.get_class``
+with an error that names ROADMAP."""
 
 from tacorl_tpu_torch.callbacks.base import Callback  # noqa: F401
 from tacorl_tpu_torch.callbacks.horizon import (  # noqa: F401
     IncreaseHorizonConstant,
     IncreaseHorizonLinear,
+)
+from tacorl_tpu_torch.callbacks.horizon_uncertainty import (  # noqa: F401
+    IncreaseHorizonUncertainty,
 )
 from tacorl_tpu_torch.callbacks.kl_schedule import (  # noqa: F401
     KLConstantSchedule,

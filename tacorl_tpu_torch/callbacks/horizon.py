@@ -1,6 +1,6 @@
 """Goal-horizon curricula (a copy of tacorl_tpu/callbacks/horizon.py;
 reference: utils/callbacks/increase_horizon.py). The uncertainty-gated
-variant (``IncreaseHorizonUncertainty``) is not ported yet (ROADMAP)."""
+variant is ``callbacks/horizon_uncertainty.py``."""
 
 from __future__ import annotations
 

@@ -23,7 +23,7 @@ a vector modality's ``noise``; what is missing is drawn from the
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import Tensor
@@ -49,6 +49,7 @@ class DeviceTransforms:
     ):
         self.cfg = {k: dict(v) for k, v in (transforms or {}).items()}
         self.device = resolve_device(device)
+        self._stats: Dict[Tuple[str, str], Tuple[Tensor, Tensor]] = {}
 
     def _apply_one(
         self,
@@ -71,9 +72,7 @@ class DeviceTransforms:
             return image_aug.augment_rgb_eval(planar, out_hw=size)
         if kind == "vector":
             x = value.float()
-            mean = torch.as_tensor(cfg.get("mean", 0.0), dtype=torch.float32, device=x.device)
-            std = torch.as_tensor(cfg.get("std", 1.0), dtype=torch.float32, device=x.device)
-            std = torch.where(std == 0.0, 1.0, std)
+            mean, std = self._vector_stats(modality, cfg, x.device)
             x = (x - mean) / std
             noise_std = float(cfg.get("noise_std", 0.0))
             if train and noise_std > 0.0:
@@ -89,6 +88,19 @@ class DeviceTransforms:
                 "depth transforms are not ported yet (see ROADMAP.md)"
             )
         raise ValueError(f"unknown transform kind {kind!r}")
+
+    def _vector_stats(self, modality: str, cfg: dict, device) -> Tuple[Tensor, Tensor]:
+        """A vector modality's mean and std (a zero std as 1) on ``device``,
+        made once: a host value copied to the card makes the host wait.
+        Made outside inference mode, so that a rollout's first call leaves
+        tensors that training can use."""
+        key = (modality, str(device))
+        if key not in self._stats:
+            with torch.inference_mode(False):
+                mean = torch.as_tensor(cfg.get("mean", 0.0), dtype=torch.float32, device=device)
+                std = torch.as_tensor(cfg.get("std", 1.0), dtype=torch.float32, device=device)
+                self._stats[key] = (mean, torch.where(std == 0.0, 1.0, std))
+        return self._stats[key]
 
     def _rgb_train(self, planar, cfg, size, draws, generator) -> Tensor:
         """Resize + DrQ shift (two GEMM passes in ``aug_dtype``), then the

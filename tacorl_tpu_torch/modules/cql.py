@@ -29,13 +29,33 @@ from the module's generator) holds, with the JAX step's key for each:
     rand                    the (bs * n, action_dim) uniform actions in
                             [-1, 1) (k_rand)
 
+    dropout                 MC-dropout critics only (``q_network.with_dropout``):
+                            {rows: boolean keep mask (rows, hidden_dim)} for
+                            rows = bs and n * bs (k_drop)
+
 ``eps`` is the standard normal of the continuous action part and
 ``gumbel_u`` the uniform (1e-6, 1 - 1e-6) Gumbel draw of a discrete
 gripper; the JAX actor draws them from ``jax.random.split(key)``, or eps
 from the key itself without a gripper (``networks/actor.py``).
 
-Not ported yet (they raise): ``state_based`` (D4RL flat vectors), the VIB
-regularizer, MC-dropout critics (``q_network.with_dropout``).
+MC-dropout critics: the JAX step applies every critic with one dropout key
+(``k_drop``), and flax derives a mask from that key, the module's path and
+the shape. So every critic apply of a step with the same row count gets the
+same mask: q1 and q2, both targets, the actor loss's critics and the
+embedding path at ``bs`` rows, the conservative term's three n-action
+batches at ``n * bs`` rows. The port takes one mask per row count from
+``draws["dropout"]``, else draws it from the module's generator once per
+row count per step; the validation step does the same.
+
+Observations: dicts of modalities through the LateFusion encoders (image
+modalities encoded, vector modalities passed through, as
+``experiment=cql_fake_state`` uses them), or with ``state_based: true``
+flat arrays (observation and goal concatenated) straight into the actor
+and critics, with no encoders.
+
+Not ported (it raises): the VIB regularizer (``with_vib``). The JAX
+package cannot run it either: its ``init_state`` and critic applies supply
+no ``"sample"`` rng for the VIB encoder (ROADMAP Queue 3).
 """
 
 from __future__ import annotations
@@ -55,13 +75,20 @@ from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.data.transforms import DeviceTransforms
 from tacorl_tpu_torch.modules.base import AlgorithmModule
 from tacorl_tpu_torch.networks.actor import Actor
-from tacorl_tpu_torch.networks.critic import Critic
+from tacorl_tpu_torch.networks.critic import Critic, dropout_keep_mask
 from tacorl_tpu_torch.networks.goal_encoder import VisualGoalEncoder
 from tacorl_tpu_torch.networks.late_fusion import build_late_fusion
 from tacorl_tpu_torch.networks.layers import reset_parameters
 from tacorl_tpu_torch.networks.visual_wrappers import VisualActorWrapper, VisualCriticWrapper
 
-__all__ = ["CQLNet", "CQLModule"]
+__all__ = ["CQLNet", "CQLModule", "VIB_FAULT"]
+
+VIB_FAULT = (
+    "the VIB regularizer (with_vib) is not ported: the JAX package cannot run it "
+    "either, since CQLModule.init_state and its critic applies supply no 'sample' "
+    "rng for the VIB encoder, so its train step fails with flax InvalidRngError; "
+    "see ROADMAP Queue 3"
+)
 
 
 class CQLNet(nn.Module):
@@ -93,8 +120,6 @@ class CQLModule(AlgorithmModule):
 
     def build(self) -> None:
         cfg = self.cfg
-        if cfg.get("state_based", False):
-            raise NotImplementedError("state_based CQL is not ported yet (see ROADMAP.md)")
         self.discount = float(cfg.get("discount", 0.99))
         self.tau = float(cfg.get("tau", 0.005))
         self.reward_scale = float(cfg.get("reward_scale", 1.0))
@@ -108,7 +133,7 @@ class CQLModule(AlgorithmModule):
         self.with_dr3 = bool(cfg.get("with_dr3", False))
         self.dr3_coefficient = float(cfg.get("dr3_coefficient", 0.03))
         if cfg.get("with_vib", False):
-            raise NotImplementedError("the VIB regularizer is not ported yet (see ROADMAP.md)")
+            raise NotImplementedError(VIB_FAULT)
         self.action_dim = int(cfg.get("action_dim", 7))
         self.target_entropy = float(cfg.get("target_entropy", -self.action_dim))
         self.obs_modalities = tuple(cfg.get("obs_modalities", ["rgb_static"]))
@@ -136,23 +161,37 @@ class CQLModule(AlgorithmModule):
             self.group_hparams["log_alpha_prime"] = (critic_lr, None)
         self.generator = torch.Generator(device=self.device)
 
+    @property
+    def critic_dropout(self) -> bool:
+        """MC-dropout critics (``q_network.with_dropout``)."""
+        return bool((self.cfg.get("q_network") or {}).get("with_dropout"))
+
     def build_networks(self) -> None:
-        """Separate encoders per network; sets ``self.net``."""
+        """Separate encoders per network; sets ``self.net``. With
+        ``state_based: true`` observations are flat arrays (observation and
+        goal concatenated) that pass straight through the wrappers: an empty
+        fusion and no goal encoder (cql_offline_lightning_d4rl.py:107-128)."""
         cfg = self.cfg
-        vector_dims = dict(cfg.get("vector_dims", {}))
-        all_mods = list(dict.fromkeys(self.obs_modalities + self.goal_modalities))
+        if cfg.get("state_based", False):
+            state_dim, goal_dim = int(cfg["state_dim"]), int(cfg.get("goal_dim", 2))
 
-        def fusion(enc_key):
-            return build_late_fusion(cfg[enc_key]["networks"], all_mods, vector_dims)
-
-        actor_encoder = fusion("actor_encoder")
-        state_dim = actor_encoder.calc_state_dim(self.obs_modalities)
-        goal_dim = actor_encoder.calc_state_dim(self.goal_modalities)
-
-        def goal_encoder():
+            def encoders(enc_key):
+                return build_late_fusion({}, []), None, (), ()
+        else:
+            vector_dims = dict(cfg.get("vector_dims", {}))
+            all_mods = list(dict.fromkeys(self.obs_modalities + self.goal_modalities))
+            actor_encoder = build_late_fusion(cfg["actor_encoder"]["networks"], all_mods, vector_dims)
+            state_dim = actor_encoder.calc_state_dim(self.obs_modalities)
+            goal_dim = actor_encoder.calc_state_dim(self.goal_modalities)
             g_cfg = dict(cfg.get("goal_encoder", {}))
             g_cfg.pop("_target_", None)
-            return VisualGoalEncoder(in_features=goal_dim, out_features=goal_dim, **g_cfg)
+
+            def encoders(enc_key):
+                fusion = actor_encoder if enc_key == "actor_encoder" else build_late_fusion(
+                    cfg[enc_key]["networks"], all_mods, vector_dims
+                )
+                goal_encoder = VisualGoalEncoder(in_features=goal_dim, out_features=goal_dim, **g_cfg)
+                return fusion, goal_encoder, self.obs_modalities, self.goal_modalities
 
         policy_cfg = dict(cfg.get("policy", {}))
         policy_cls = get_class(policy_cfg.pop("_target_", "tacorl_tpu.networks.actor.MLPPolicy"))
@@ -165,17 +204,14 @@ class CQLModule(AlgorithmModule):
             goal_dim=goal_dim,
             discrete_gripper=bool(policy_cfg.get("discrete_gripper", False)),
         )
-        actor_net = VisualActorWrapper(
-            actor_encoder, goal_encoder(), self.obs_modalities, self.goal_modalities, actor
-        )
+        actor_net = VisualActorWrapper(*encoders("actor_encoder"), actor)
 
         def critic():
             q_cfg = dict(cfg.get("q_network", {}))
             q_cls = get_class(q_cfg.pop("_target_", "tacorl_tpu.networks.critic.MLPQNetwork"))
             q_net = q_cls(input_dim=state_dim + goal_dim + self.action_dim, **q_cfg)
             return VisualCriticWrapper(
-                fusion("critic_encoder"), goal_encoder(), self.obs_modalities,
-                self.goal_modalities, Critic(q_net, state_dim, goal_dim, self.action_dim),
+                *encoders("critic_encoder"), Critic(q_net, state_dim, goal_dim, self.action_dim)
             )
 
         self.net = CQLNet(actor_net, critic(), critic(), self.with_lagrange)
@@ -266,6 +302,7 @@ class CQLModule(AlgorithmModule):
         policy = net.actor.actor
         bs = actions.shape[0]
         metrics: Dict[str, Tensor] = {}
+        masks = self._dropout_masks(draws, bs)
 
         # ---- 1. alpha: the current actions' log-density, no gradient
         with record_function("cql/alpha"):
@@ -290,8 +327,8 @@ class CQLModule(AlgorithmModule):
             q1_emb = net.q1.get_emb_representation(obs)
             q2_emb = net.q2.get_emb_representation(obs)
             q_pi = torch.minimum(
-                net.q1.critic(q1_emb.detach(), curr_actions),
-                net.q2.critic(q2_emb.detach(), curr_actions),
+                net.q1.critic(q1_emb.detach(), curr_actions, masks.get(bs)),
+                net.q2.critic(q2_emb.detach(), curr_actions, masks.get(bs)),
             )
             q_loss = (alpha * curr_log_pi - q_pi).mean()
             bc_loss = (alpha * curr_log_pi - policy.log_prob(actor_emb, actions)).mean()
@@ -309,7 +346,8 @@ class CQLModule(AlgorithmModule):
                     actor_emb_next, draws.get("next_bellman"), generator=gen
                 )
                 q_next = torch.minimum(
-                    net.target_q1(next_obs, next_actions), net.target_q2(next_obs, next_actions)
+                    net.target_q1(next_obs, next_actions, masks.get(bs)),
+                    net.target_q2(next_obs, next_actions, masks.get(bs)),
                 )
                 if not self.deterministic_backup:
                     q_next = q_next - alpha * next_log_pi
@@ -323,10 +361,12 @@ class CQLModule(AlgorithmModule):
                     metrics["alpha_prime"] = alpha_prime
 
             q1_loss, cons1_raw = self._critic_loss(
-                net.q1, q1_emb, "q1", actions, q_target, samples, alpha_prime, next_obs, metrics
+                net.q1, q1_emb, "q1", actions, q_target, samples, alpha_prime, next_obs,
+                masks, metrics,
             )
             q2_loss, cons2_raw = self._critic_loss(
-                net.q2, q2_emb, "q2", actions, q_target, samples, alpha_prime, next_obs, metrics
+                net.q2, q2_emb, "q2", actions, q_target, samples, alpha_prime, next_obs,
+                masks, metrics,
             )
             if optimize:
                 q1_grads = torch.autograd.grad(q1_loss, opt.params("q1"))
@@ -356,6 +396,26 @@ class CQLModule(AlgorithmModule):
             state.step += 1
         return state, metrics
 
+    def _dropout_masks(self, draws, bs: int) -> Dict[int, Tensor]:
+        """MC-dropout critics: one keep mask per row count (``bs`` and
+        ``n * bs``), from ``draws["dropout"]`` or else the generator; empty
+        without dropout."""
+        if not self.critic_dropout:
+            return {}
+        q = self.net.q1.critic.Q
+        given = draws.get("dropout") or {}
+        masks = {}
+        for rows in (bs, self.n_action_samples * bs):
+            if rows in masks:
+                continue
+            if rows in given:
+                masks[rows] = self._tensor(given[rows], torch.bool)
+            else:
+                masks[rows] = dropout_keep_mask(
+                    (rows, q.hidden_dim), q.dropout_p, self.device, self.generator
+                )
+        return masks
+
     def _conservative_samples(self, policy, emb, emb_next, bs, draws) -> Dict[str, Any]:
         """The actions the conservative term scores: random, current-policy
         and next-policy, each (bs * n, action_dim), with the policies'
@@ -380,18 +440,18 @@ class CQLModule(AlgorithmModule):
         }
 
     def _critic_loss(
-        self, q, emb, name, actions, q_target, samples, alpha_prime, next_obs, metrics
+        self, q, emb, name, actions, q_target, samples, alpha_prime, next_obs, masks, metrics
     ) -> Tuple[Tensor, Tensor]:
         """Bellman loss, the conservative penalty over the samples scored on
         the observation embedding tiled n times, and DR3; returns (loss, the
         raw conservative gap)."""
-        q_data = q.critic(emb, actions)
-        bellman = torch.mean((q_data - q_target) ** 2)
         n, bs = self.n_action_samples, actions.shape[0]
+        q_data = q.critic(emb, actions, masks.get(bs))
+        bellman = torch.mean((q_data - q_target) ** 2)
         emb_n = emb.repeat(n, 1)  # jnp.tile(emb, (n, 1))
 
         def n_q(acts):
-            return q.critic(emb_n, acts).reshape(n, bs).T  # (bs, n)
+            return q.critic(emb_n, acts, masks.get(n * bs)).reshape(n, bs).T  # (bs, n)
 
         q_rand = n_q(samples["rand"])
         q_curr = n_q(samples["curr"])

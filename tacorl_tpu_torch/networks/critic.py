@@ -1,8 +1,20 @@
 """Q-networks (port of ``MLPQNetwork`` and ``Critic`` of
 tacorl_tpu/networks/critic.py): Q(s ⊕ g ⊕ a) -> scalar. state_dict keys
-follow the reference: ``Q.fc_layers.{i}``, ``Q.out``."""
+follow the reference: ``Q.fc_layers.{i}``, ``Q.out``.
+
+MC-dropout critics (``with_dropout``, the uncertainty-gated horizon
+curriculum's requirement) keep dropout active in every forward, train or
+eval, between the trunk and ``out``, as the JAX package's
+``nn.Dropout(deterministic=False)`` does. The keep mask (boolean, the
+trunk output's shape) is an optional input; without one it is drawn from
+the ``generator`` given, and without a generator it is a fixed mask (a
+generator seeded 0), as the JAX package's default dropout key
+``jax.random.key(0)`` gives a fixed mask. Dropout adds no parameters.
+"""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 import torch.nn as nn
@@ -11,7 +23,17 @@ from torch import Tensor
 
 from tacorl_tpu_torch.networks.layers import TorchDense, get_activation
 
-__all__ = ["Critic", "MLPQNetwork"]
+__all__ = ["Critic", "MLPQNetwork", "dropout_keep_mask"]
+
+
+def dropout_keep_mask(
+    shape, p: float, device, generator: Optional[torch.Generator] = None
+) -> Tensor:
+    """A boolean keep mask, each element kept with probability 1 - p; from
+    a generator seeded 0 when none is given."""
+    if generator is None:
+        generator = torch.Generator(device=device).manual_seed(0)
+    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
 
 
 class MLPQNetwork(nn.Module):
@@ -30,10 +52,9 @@ class MLPQNetwork(nn.Module):
         dropout_p: float = 0.3,
     ):
         super().__init__()
-        if with_dropout:
-            raise NotImplementedError(
-                "MC-dropout critics are not ported yet (see ROADMAP.md)"
-            )
+        self.with_dropout = bool(with_dropout)
+        self.dropout_p = float(dropout_p)
+        self.hidden_dim = hidden_dim
         dims = [input_dim] + [hidden_dim] * num_layers
         self.fc_layers = nn.ModuleList(
             TorchDense(i, o) for i, o in zip(dims[:-1], dims[1:])
@@ -41,10 +62,20 @@ class MLPQNetwork(nn.Module):
         self.out = TorchDense(hidden_dim, 1, init_w=init_w)
         self.last_act = get_activation(last_layer_activation)
 
-    def forward(self, q_input: Tensor) -> Tensor:
+    def forward(
+        self,
+        q_input: Tensor,
+        mask: Optional[Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tensor:
         x = q_input
         for fc in self.fc_layers:
             x = F.silu(fc(x))
+        if self.with_dropout:
+            if mask is None:
+                mask = dropout_keep_mask(x.shape, self.dropout_p, x.device, generator)
+            # flax's Dropout: select(keep, x / keep_prob, 0)
+            x = torch.where(mask, x / (1.0 - self.dropout_p), torch.zeros_like(x))
         return self.last_act(self.out(x))
 
 
@@ -60,5 +91,16 @@ class Critic(nn.Module):
         self.goal_dim = goal_dim
         self.action_dim = action_dim
 
-    def forward(self, obs_emb: Tensor, action: Tensor) -> Tensor:
-        return self.Q(torch.cat([obs_emb, action], dim=-1))
+    def forward(
+        self,
+        obs_emb: Tensor,
+        action: Tensor,
+        mask: Optional[Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tensor:
+        """``mask`` and ``generator`` reach an MC-dropout trunk; a trunk
+        without dropout takes neither."""
+        q_input = torch.cat([obs_emb, action], dim=-1)
+        if getattr(self.Q, "with_dropout", False):
+            return self.Q(q_input, mask, generator)
+        return self.Q(q_input)

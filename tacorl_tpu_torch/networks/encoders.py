@@ -3,7 +3,8 @@ tacorl_tpu/networks/encoders.py).
 
 NCHW throughout. ``LMPVisionEncoder`` keeps the reference TACO-RL
 state_dict layout (``model.{0,2,4}`` convs, ``model.6.temperature``,
-``fc_layers.{0,3}``), so released checkpoints load as they are.
+``fc_layers.{0,3}``; with the VIB head ``fc_mean`` and ``fc_log_std`` in
+their place), so released checkpoints load as they are.
 """
 
 from __future__ import annotations
@@ -14,7 +15,11 @@ import torch
 import torch.nn as nn
 from torch import Tensor
 
+from tacorl_tpu_torch.core.distributions import DiagNormal
 from tacorl_tpu_torch.networks.layers import Activation, TorchConv, TorchDense
+
+MEAN_MIN, MEAN_MAX = -9.0, 9.0
+LOG_SIG_MIN, LOG_SIG_MAX = -5.0, 2.0
 
 __all__ = ["SpatialSoftArgmax", "LMPVisionEncoder"]
 
@@ -66,6 +71,12 @@ class LMPVisionEncoder(nn.Module):
 
     ``compute_dtype`` (bf16 by default, as in the JAX package) is the
     convolutions' dtype; the spatial softmax and the head run in float32.
+
+    ``vib``: the variational information bottleneck head replaces the FC
+    head. ``get_dist`` is a DiagNormal with its mean clipped to [-9, 9] and
+    its log std to [-5, 2]; the forward returns a reparameterised sample of
+    it, ``eps`` (the standard normal) optional, else drawn from
+    ``generator``.
     """
 
     def __init__(
@@ -82,9 +93,8 @@ class LMPVisionEncoder(nn.Module):
         in_channels: int = 3,
     ):
         super().__init__()
-        if vib:
-            raise NotImplementedError("the VIB head is not ported yet (see ROADMAP.md)")
         self.latent_dim = latent_dim
+        self.vib = vib
         self.model = nn.Sequential(
             TorchConv(in_channels, 32, 8, 4, dtype=compute_dtype),
             Activation(activation_function),
@@ -94,13 +104,19 @@ class LMPVisionEncoder(nn.Module):
             Activation(activation_function),
             SpatialSoftArgmax(temperature, normalize_spatial_softmax),
         )
-        self.fc_layers = nn.Sequential(
-            TorchDense(2 * 64, hidden_dim),
-            Activation(activation_function),
-            nn.Dropout(dropout),
-            TorchDense(hidden_dim, latent_dim),
-        )
-        self.layernorm = nn.LayerNorm(latent_dim, eps=1e-6) if normalize_output else None
+        if vib:
+            self.fc_mean = TorchDense(2 * 64, latent_dim)
+            self.fc_log_std = TorchDense(2 * 64, latent_dim)
+        else:
+            self.fc_layers = nn.Sequential(
+                TorchDense(2 * 64, hidden_dim),
+                Activation(activation_function),
+                nn.Dropout(dropout),
+                TorchDense(hidden_dim, latent_dim),
+            )
+        # the VIB head's sample is not normalised (the JAX head makes no
+        # LayerNorm parameters there either)
+        self.layernorm = nn.LayerNorm(latent_dim, eps=1e-6) if normalize_output and not vib else None
 
     def conv_forward(self, x: Tensor) -> Tensor:
         out_hw = [
@@ -116,7 +132,22 @@ class LMPVisionEncoder(nn.Module):
             x = layer(x)
         return self.model[6](x.float())
 
-    def forward(self, x: Tensor) -> Tensor:
+    def get_dist(self, x: Tensor) -> DiagNormal:
+        if not self.vib:
+            raise ValueError("get_dist requires vib=True")
+        feat = self.conv_forward(x)
+        mean = torch.clamp(self.fc_mean(feat), MEAN_MIN, MEAN_MAX)
+        log_std = torch.clamp(self.fc_log_std(feat), LOG_SIG_MIN, LOG_SIG_MAX)
+        return DiagNormal(mean, torch.exp(log_std))
+
+    def forward(
+        self,
+        x: Tensor,
+        eps: Optional[Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tensor:
+        if self.vib:
+            return self.get_dist(x).sample(generator, eps=eps)
         out = self.fc_layers(self.conv_forward(x))
         if self.layernorm is not None:
             out = self.layernorm(out)

@@ -5,8 +5,9 @@ goal encoder), concatenate, delegate. state_dict keys follow the
 reference: ``encoder.networks.<modality>.*``, ``goal_encoder.mlp.*``, then
 ``actor.policy.*`` or ``critic.Q.*``. The CQL step calls the actor's
 samplers on the embedding (``networks/actor.py``); the rollout policies call
-the wrapper's ``get_actions``. The VIB distribution
-(``get_vib_distribution``) waits for the VIB encoder head."""
+the wrapper's ``get_actions``. ``get_vib_distribution`` is the VIB head's
+distribution of the ``rgb_static`` encoder (an encoder built with
+``vib: true``)."""
 
 from __future__ import annotations
 
@@ -75,5 +76,19 @@ class VisualCriticWrapper(_VisualWrapperBase):
         super().__init__(encoder, goal_encoder, env_modalities, goal_modalities)
         self.critic = critic
 
-    def forward(self, obs: Obs, action: Tensor) -> Tensor:
-        return self.critic(self.get_emb_representation(obs), action)
+    def forward(
+        self,
+        obs: Obs,
+        action: Tensor,
+        mask: Optional[Tensor] = None,
+        generator: Optional[torch.Generator] = None,
+    ) -> Tensor:
+        """``mask`` and ``generator``: an MC-dropout trunk's keep mask or
+        its source (``networks/critic.py``)."""
+        return self.critic(self.get_emb_representation(obs), action, mask, generator)
+
+    def get_vib_distribution(self, obs: Obs):
+        """The VIB distribution of the rgb_static encoder
+        (visual_critic_wrapper.py:25-33)."""
+        obs_dict = obs["observation"] if self.goal_modalities and "goal" in obs else obs
+        return self.encoder.networks["rgb_static"].get_dist(obs_dict["rgb_static"])

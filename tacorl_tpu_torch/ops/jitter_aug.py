@@ -69,6 +69,19 @@ _MIN_BAND_CHUNKS = 32
 _UNSCHEDULABLE = -1  # jitter::kUnschedulable
 
 
+_PERM_TABLES: Dict[str, Tensor] = {}
+
+
+def _perm_table(device: torch.device) -> Tensor:
+    """``PERM_TABLE`` as float32 on ``device``, copied there once (a copy
+    from host memory makes the host wait), outside inference mode."""
+    key = str(device)
+    if key not in _PERM_TABLES:
+        with torch.inference_mode(False):
+            _PERM_TABLES[key] = torch.tensor(PERM_TABLE, dtype=torch.float32, device=device)
+    return _PERM_TABLES[key]
+
+
 def sample_jitter_factors(
     n: int,
     generator: torch.Generator,
@@ -90,7 +103,7 @@ def sample_jitter_factors(
     cf = uniform(max(0.0, 1.0 - contrast), 1.0 + contrast)
     hf = uniform(-hue, hue)
     code = torch.randint(0, len(PERM_TABLE), (n,), generator=generator, device=dev)
-    ops = torch.tensor(PERM_TABLE, dtype=torch.float32, device=dev)[code]
+    ops = _perm_table(dev)[code]
     apply = (torch.rand(n, generator=generator, device=dev) < prob).float()
     return torch.cat(
         [

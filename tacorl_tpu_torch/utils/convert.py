@@ -17,7 +17,12 @@ reference checkpoint holds. Layouts:
   * the hoisted RNN's ``cell{i}/i`` -> ``weight_ih_l{i}``/``bias_ih_l{i}``,
     ``cell{i}/h`` -> ``weight_hh_l{i}``; ``bias_hh_l{i}`` = 0 (the JAX layer
     has no recurrent bias)
-  * late fusion ``encoders_{i}_1`` -> ``networks.<i-th image modality>``
+  * late fusion ``encoders_{i}_1`` -> ``networks.<i-th image modality>``;
+    ``modalities`` names the image modalities only: vector modalities have
+    no encoder and no parameters, and a state-based CQL net (flat arrays)
+    has neither an encoder nor a goal encoder
+  * the VIB head of ``LMPVisionEncoder`` (``vib: true``): ``fc_mean``,
+    ``fc_log_std`` in place of ``fc1``/``fc2``
 """
 
 from __future__ import annotations
@@ -87,14 +92,19 @@ def _prefixed(prefix: str, sd: StateDict) -> StateDict:
 
 def vision_encoder_state_dict(p: Mapping) -> StateDict:
     """``LMPVisionEncoder``: conv1-3 -> ``model.{0,2,4}``, ssam ->
-    ``model.6``, fc1/fc2 -> ``fc_layers.{0,3}``."""
+    ``model.6``, fc1/fc2 -> ``fc_layers.{0,3}`` (or the VIB head's
+    ``fc_mean``/``fc_log_std``)."""
     sd: StateDict = {}
     for j, name in ((0, "conv1"), (2, "conv2"), (4, "conv3")):
         sd.update(_conv(p[name], f"model.{j}."))
     if "ssam" in p:
         sd["model.6.temperature"] = _t(p["ssam"]["temperature"])
-    sd.update(_dense(p["fc1"], "fc_layers.0."))
-    sd.update(_dense(p["fc2"], "fc_layers.3."))
+    if "fc_mean" in p:
+        sd.update(_dense(p["fc_mean"], "fc_mean."))
+        sd.update(_dense(p["fc_log_std"], "fc_log_std."))
+    else:
+        sd.update(_dense(p["fc1"], "fc_layers.0."))
+        sd.update(_dense(p["fc2"], "fc_layers.3."))
     if "layernorm" in p:
         sd.update(_layernorm(p["layernorm"], "layernorm."))
     return sd
@@ -204,11 +214,18 @@ def _late_fusion(p: Mapping, modalities: Sequence[str]) -> StateDict:
     return sd
 
 
+def _wrapper_encoders(p: Mapping, modalities: Sequence[str]) -> StateDict:
+    """A wrapper's ``encoder.*`` and ``goal_encoder.*``, where it has them."""
+    sd = _prefixed("encoder.", _late_fusion(p.get("encoder", {}), modalities))
+    if "goal_encoder" in p:
+        sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(p["goal_encoder"])))
+    return sd
+
+
 def visual_critic_state_dict(p: Mapping, modalities: Sequence[str] = ("rgb_static",)) -> StateDict:
     """``VisualCriticWrapper``: ``encoder.networks.*``, ``goal_encoder.mlp.*``,
     ``critic.Q.*`` (the inverse of ``convert_visual_critic``)."""
-    sd = _prefixed("encoder.", _late_fusion(p["encoder"], modalities))
-    sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(p["goal_encoder"])))
+    sd = _wrapper_encoders(p, modalities)
     sd.update(_prefixed("critic.Q.", q_network_state_dict(p["critic"]["q_network"])))
     return sd
 
@@ -216,8 +233,7 @@ def visual_critic_state_dict(p: Mapping, modalities: Sequence[str] = ("rgb_stati
 def visual_actor_state_dict(p: Mapping, modalities: Sequence[str] = ("rgb_static",)) -> StateDict:
     """``VisualActorWrapper``: ``encoder.networks.*``, ``goal_encoder.mlp.*``,
     ``actor.policy.*`` (the inverse of ``convert_visual_actor``)."""
-    sd = _prefixed("encoder.", _late_fusion(p["encoder"], modalities))
-    sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(p["goal_encoder"])))
+    sd = _wrapper_encoders(p, modalities)
     sd.update(_prefixed("actor.policy.", mlp_policy_state_dict(p["actor"]["policy"])))
     return sd
 

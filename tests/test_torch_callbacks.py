@@ -18,7 +18,7 @@ from tacorl_tpu.callbacks import rollout as jax_rollout
 from tacorl_tpu.envs.fake_calvin import FakeCalvinEnv as JaxFakeCalvinEnv
 from tacorl_tpu.modules.cql import CQLModule as JaxCQLModule
 from tacorl_tpu_torch import callbacks
-from tacorl_tpu_torch.callbacks import horizon, kl_schedule, rollout
+from tacorl_tpu_torch.callbacks import horizon, horizon_uncertainty, kl_schedule, rollout
 from tacorl_tpu_torch.config import get_class
 from tacorl_tpu_torch.data.expert_play import generate_expert_play
 from tacorl_tpu_torch.envs.fake_calvin import FakeCalvinEnv
@@ -102,6 +102,11 @@ def test_increase_horizon_linear_matches_jax(strategies):
     ],
 )
 def test_callbacks_not_ported_name_the_roadmap(target):
+    """A target the port lacks fails naming ROADMAP; the uncertainty-gated
+    horizon is ported now, and its target resolves to the port's class."""
+    if target.endswith("IncreaseHorizonUncertainty"):
+        assert get_class(target) is horizon_uncertainty.IncreaseHorizonUncertainty
+        return
     with pytest.raises(ImportError, match="ROADMAP"):
         get_class(target)
 

@@ -76,6 +76,12 @@ def probe():
         "tacorl_tpu_torch.callbacks.kl_schedule",
         "tacorl_tpu_torch.callbacks.horizon",
         "tacorl_tpu_torch.callbacks.rollout",
+        "tacorl_tpu_torch.callbacks.horizon_uncertainty",
+        "tacorl_tpu_torch.core.obs",
+        "tacorl_tpu_torch.data.transition_dataset",
+        "tacorl_tpu_torch.data.saved_transitions",
+        "tacorl_tpu_torch.networks.encoders",
+        "tacorl_tpu_torch.make_flagship_data",
     ],
 )
 def test_probe_imported_every_module(probe, name):
@@ -113,7 +119,7 @@ def _cql_cfg():
 
 @pytest.mark.parametrize(
     "entry",
-    ["resolve_device", "DeviceTransforms", "PlayLMPModule", "CQLModule", "TACORLModule",
+    ["resolve_device", "DeviceTransforms", "PlayLMPModule", "CQLModule", "StateCQLModule", "TACORLModule",
      "load_module_from_checkpoint", "LatentPlanAgent", "TACORLAgent", "FlatPolicyAgent",
      "make_agent", "evaluate.main", "Trainer", "train.main", "DevicePut"],
 )
@@ -138,6 +144,7 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "DeviceTransforms": lambda: DeviceTransforms({}),
         "PlayLMPModule": lambda: PlayLMPModule(_tiny_cfg()),
         "CQLModule": lambda: CQLModule(_cql_cfg()),
+        "StateCQLModule": lambda: CQLModule({"state_based": True, "state_dim": 6, "goal_dim": 3}),
         "TACORLModule": lambda: TACORLModule({"play_lmp_dir": str(tmp_path)}),
         "load_module_from_checkpoint": lambda: load_module_from_checkpoint(tmp_path),
         # the agents over modules built on the default device

@@ -30,7 +30,10 @@ REPO = Path(__file__).resolve().parent.parent
 CONFIGS = REPO / "configs"
 
 
-@pytest.mark.parametrize("experiment", ["play_lmp_for_rl", "tacorl", "play_lmp_fake"])
+@pytest.mark.parametrize(
+    "experiment",
+    ["play_lmp_for_rl", "tacorl", "play_lmp_fake", "cql_fake", "cql_fake_state", "tacorl_fake"],
+)
 def test_compose_matches_jax_on_train_yaml(experiment):
     overrides = [f"experiment={experiment}", "data_dir=/data", "play_lmp_dir=/runs/lmp",
                  "trainer.max_steps=7", "callbacks/kl_schedule=linear"]
@@ -131,6 +134,64 @@ def test_play_lmp_fake_trains_with_the_rollout_monitor(tmp_path):
         "env.max_episode_steps=4", f"filename={tmp_path / 'best.json'}",
     ])
     assert results and all(0.0 <= r["accuracy"] <= 1.0 for r in results.values())
+
+
+VECTOR_ENV = ["env.modalities=[robot_obs,scene_obs]", "env.goal_modalities=[robot_obs,scene_obs]"]
+
+
+def test_cql_fake_state_trains_and_scores(tmp_path):
+    """Flat CQL on robot_obs/scene_obs vectors: 2 epochs with the linear
+    horizon and the rollout monitor, then ``evaluate epoch=best`` with the
+    vector env overrides."""
+    data = tmp_path / "play"
+    generate_expert_play(data, n_train_episodes=2, n_val_episodes=2, tasks_per_episode=2, seed=3)
+    run = tmp_path / "run"
+    trainer = train.main([
+        "+device=cpu", "experiment=cql_fake_state", f"data_dir={data}", f"run_dir={run}",
+        "trainer.max_epochs=2", "trainer.log_every_n_steps=1", "datamodule.batch_size=8",
+        "module.policy.hidden_dim=16", "module.q_network.hidden_dim=16",
+        "module.goal_encoder.hidden_size=16", "module.bc_epochs=1",
+        "callbacks.rollout.num_rollouts_per_task=1", "env.max_episode_steps=6",
+    ])
+    assert [type(cb).__name__ for cb in trainer.callbacks] == ["IncreaseHorizonLinear", "RolloutCallback"]
+    assert trainer.state.net.q1.encoder.networks.keys() == set()  # vectors pass through
+    rows = _rows(run)
+    assert [r["train/goal_horizon"] for r in rows if "train/goal_horizon" in r] == [16.0, 24.0]
+    assert all(np.isfinite(r["train/q1_loss"]) for r in rows if "train/q1_loss" in r)
+    assert len([r for r in rows if "val_accuracy" in r]) == 2
+    results = evaluate.main([
+        "+device=cpu", f"module_path={run}", "epoch=best", f"data_dir={data / 'validation'}",
+        "eval_type=short_horizon", "env.image_hw=64", "env.max_episode_steps=6",
+        "env.task_set=hard", *VECTOR_ENV, "min_seq_len=1", "max_seq_len=64", "max_rollouts=2",
+        f"filename={tmp_path / 'best.json'}",
+    ])
+    assert results and all(0.0 <= r["accuracy"] <= 1.0 for r in results.values())
+
+
+def test_state_based_cql_trains_on_saved_transitions(tmp_path):
+    """``state_based: true`` (experiment=cql_d4rl's module) on flat
+    transitions that the port's SavedTransitionDataset reads."""
+    rs = np.random.RandomState(0)
+    for split, n in (("training", 24), ("validation", 8)):
+        (tmp_path / "data" / split).mkdir(parents=True)
+        for i in range(n):
+            np.savez(tmp_path / "data" / split / f"transition_{i:09d}.npz",
+                     state=rs.randn(31).astype(np.float32), action=rs.uniform(-1, 1, 8).astype(np.float32),
+                     next_state=rs.randn(31).astype(np.float32), reward=float(i % 5 == 0), done=i % 7 == 0)
+    run = tmp_path / "run"
+    trainer = train.main([
+        "+device=cpu", "experiment=cql_d4rl", f"run_dir={run}", "~datamodule._target_",
+        f"+datamodule.data_dir={tmp_path / 'data'}", "+datamodule.val_percentage=1.0",
+        "datamodule.batch_size=8", "+datamodule.dataset.val_percentage=0.0",
+        "datamodule.dataset._target_=tacorl_tpu.data.saved_transitions.SavedTransitionDataset",
+        "module.policy.hidden_dim=16", "module.q_network.hidden_dim=16",
+        "trainer.max_epochs=2", "trainer.log_every_n_steps=1",
+    ])
+    assert trainer.global_step == 6
+    assert not any("encoder" in k for k in trainer.state.net.state_dict())
+    rows = _rows(run)
+    assert all(np.isfinite(r["train/q1_loss"]) for r in rows if "train/q1_loss" in r)
+    assert sum("validation/q1_loss" in r for r in rows) == 2
 
 
 def test_platform_key_does_not_pick_the_cpu(tmp_path):
