@@ -127,6 +127,25 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 of phase 16 (5 steps each beside the loader), 0
                 jitter_normalize launches, then
                 ``evaluate`` epoch=best with the vector env.
+ 23. reference_d4rl  one train step and one val step of each D4RL stage
+                (PlayLMPD4RLModule, TACORLD4RLModule grafted from it) at a
+                tiny float32 config on the card and on the CPU, from the
+                same weights, batch and draws: every metric within rtol
+                1e-4.
+ 24. train_d4rl  experiment=play_lmp_d4rl (8-head 2-layer 2048/4096
+                posterior padded 29 -> 32, 2x2048 continuous decoder, batch
+                64), experiment=tacorl_d4rl grafted from that run, and
+                experiment=cql_d4rl (batch 256) through train.main on a
+                synthetic .npz of antmaze-large's shapes (29-wide states,
+                8-wide actions), 2 epochs of 12 steps each: ms/step over the
+                second epoch, busy share, kernels and host waits a step,
+                loader wait; finite losses, the frozen posterior
+                bit-unchanged in stage 2, actor, critics and decoder changed,
+                0 launches of either kernel.
+ 25. rollout_d4rl  both hierarchical D4RL agents of phase 24's runs on
+                FakeD4RLEnv(29, 8, 60 steps), plan_duration 15, 10 episodes
+                each: ms per decode step and per replan, env steps/s,
+                kernels per decode step, 0 kernel launches.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -2122,6 +2141,260 @@ def phase_train_cql_state(card: str, data_dir: str, pct: float, run_dir: str):
     return launches
 
 
+# -- the D4RL branch: state-based Play-LMP and TACO-RL, flat CQL ----------------------------
+
+D4RL_LMP_TARGET = "tacorl_tpu.modules.play_lmp_d4rl.PlayLMPD4RLModule"
+# tests/test_torch_d4rl.py's tiny config (float32, no posterior dropout)
+D4RL_TINY_LMP = {
+    "_target_": D4RL_LMP_TARGET, "lr": 1e-3, "latent_plan_dim": 8, "state_dim": 8, "action_dim": 4,
+    "plan_recognition": {"num_heads": 4, "num_layers": 1, "encoder_hidden_size": 32,
+                         "fc_hidden_size": 32, "max_position_embeddings": 12, "dropout_p": 0.0},
+    "plan_proposal": {"policy": {"num_layers": 2, "hidden_dim": 32}},
+    "action_decoder": {"hidden_size": 32, "num_layers": 1, "n_mixtures": 4},
+}
+D4RL_TINY_TACORL = {
+    "_target_": "tacorl_tpu.modules.tacorl_d4rl.TACORLD4RLModule", "finetune_action_decoder": True,
+    "with_lagrange": True, "n_action_samples": 3, "q_network": {"num_layers": 2, "hidden_dim": 16},
+}
+# antmaze-large's shapes (experiment=play_lmp_d4rl / cql_d4rl): 29-wide
+# states, 8-wide actions; 32 episodes of 100 steps
+D4RL_OBS, D4RL_ACT, D4RL_STEPS = 29, 8, 3200
+D4RL_BATCHES = 12  # an epoch of each experiment: 12 batches
+D4RL_ROLLOUTS, D4RL_PLAN_DURATION = 10, 15
+
+
+def phase_reference_d4rl() -> None:
+    """One train step and one val step of each D4RL stage at the tiny
+    float32 config on the card and on the CPU, from the same weights, batch
+    and draws (one CPU generator): every metric within rtol 1e-4."""
+    from tacorl_tpu_torch.data.d4rl_dataset import D4RLPlayDataset, generate_synthetic_d4rl
+    from tacorl_tpu_torch.data.loader import DataLoader
+    from tacorl_tpu_torch.modules.play_lmp_d4rl import PlayLMPD4RLModule
+    from tacorl_tpu_torch.modules.tacorl_d4rl import TACORLD4RLModule
+
+    b, latent, n = 4, D4RL_TINY_LMP["latent_plan_dim"], D4RL_TINY_TACORL["n_action_samples"]
+    g = torch.Generator().manual_seed(4)
+
+    def eps(*shape):
+        return {"eps": torch.randn(shape, generator=g)}
+
+    def uniform_plan():
+        return torch.rand((b, latent), generator=g) * 2.0 - 1.0
+
+    lmp_train = {"eps": torch.randn((b, latent), generator=g), "random_plan": uniform_plan()}
+    lmp_val = {"eps": torch.randn((b, latent), generator=g), "random_plan": uniform_plan(),
+               "pp_eps": torch.randn((b, latent), generator=g)}
+    rl_draws = {
+        "plan_eps": torch.randn((b, latent), generator=g), "curr": eps(b, latent),
+        "next_bellman": eps(b, latent), "curr_n": eps(n, b, latent), "next_n": eps(n, b, latent),
+        "rand": torch.rand((b * n, latent), generator=g) * 2.0 - 1.0,
+    }
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = generate_synthetic_d4rl(f"{tmp}/d.npz", n_steps=400, obs_dim=8, act_dim=4)
+        windows = D4RLPlayDataset(dataset_path=npz, min_window_size=8, max_window_size=12, include_goal=True)
+        batch = next(iter(DataLoader(windows, batch_size=b, seed=0, prefetch=0)))
+        lmp = PlayLMPD4RLModule(D4RL_TINY_LMP, device="cpu")
+        CheckpointManager(f"{tmp}/lmp", config={"module": D4RL_TINY_LMP}).save(0, lmp.init_state(0))
+        weights = {}
+        for device in ("cpu", "cuda"):
+            out = {}
+            for stage, module in (
+                ("lmp", PlayLMPD4RLModule(D4RL_TINY_LMP, device=device)),
+                ("tacorl", TACORLD4RLModule({**D4RL_TINY_TACORL, "play_lmp_dir": f"{tmp}/lmp"}, device=device)),
+            ):
+                state = module.init_state(0)
+                weights.setdefault(stage, {k: v.clone() for k, v in module.net.state_dict().items()})
+                module.net.load_state_dict(weights[stage])
+                if stage == "lmp":
+                    val, _ = module.make_val_step()(state, batch, {"kl_beta": 1e-2}, **_to_device(lmp_val, device))
+                    _, train = module.make_train_step()(state, batch, {"kl_beta": 1e-2},
+                                                        **_to_device(lmp_train, device))
+                else:
+                    on_device = _to_device(rl_draws, device)
+                    val, _ = module.make_val_step()(state, batch, {"bc_phase": 0.0}, draws=on_device)
+                    _, train = module.make_train_step()(state, batch, {"bc_phase": 0.0}, draws=on_device)
+                out.update({f"{stage}/train/{k}": float(v) for k, v in train.items()})
+                out.update({f"{stage}/val/{k}": float(v) for k, v in val.items()})
+            results[device] = out
+    _check(set(results["cuda"]) == set(results["cpu"]), "reference_d4rl: metric keys")
+    worst = 0.0
+    for key, c in results["cpu"].items():
+        a = results["cuda"][key]
+        _check(np.isfinite(a) and abs(a - c) <= 1e-4 * abs(c) + 1e-6, f"reference_d4rl {key}: cuda {a} vs cpu {c}")
+        worst = max(worst, abs(a - c) / max(abs(c), 1e-6))
+    print(
+        f"[reference_d4rl] tiny float32 Play-LMP D4RL and TACO-RL D4RL train + val steps, cuda vs cpu, "
+        f"same weights, batch and draws: {len(results['cpu'])} metrics, lmp total_loss "
+        f"{results['cuda']['lmp/train/total_loss']:.6f} vs {results['cpu']['lmp/train/total_loss']:.6f}, "
+        f"random_plan_action_loss {results['cuda']['lmp/train/random_plan_action_loss']:.6f} vs "
+        f"{results['cpu']['lmp/train/random_plan_action_loss']:.6f}, tacorl q1_loss "
+        f"{results['cuda']['tacorl/train/q1_loss']:.6f} vs {results['cpu']['tacorl/train/q1_loss']:.6f}; "
+        f"largest relative difference {worst:.3g} (rtol 1e-4)",
+        flush=True,
+    )
+
+
+def _d4rl_train_data(root) -> tuple:
+    """A synthetic .npz of antmaze-large's shapes; returns its path and the
+    train_percentage of the play windows and of the transitions that make
+    an epoch D4RL_BATCHES batches of 64 and of 256."""
+    from tacorl_tpu_torch.data.d4rl_dataset import (
+        D4RLPlayDataset,
+        D4RLTransitionDataset,
+        generate_synthetic_d4rl,
+    )
+
+    npz = generate_synthetic_d4rl(f"{root}/antmaze_shapes.npz", n_steps=D4RL_STEPS, episode_len=100,
+                                  obs_dim=D4RL_OBS, act_dim=D4RL_ACT, seed=0)
+    windows = len(D4RLPlayDataset(dataset_path=npz, min_window_size=8, max_window_size=16))
+    transitions = len(D4RLTransitionDataset(dataset_path=npz))
+    pct = {"play": (D4RL_BATCHES * 64 + 0.5) / windows, "transition": (D4RL_BATCHES * 256 + 0.5) / transitions}
+    _check(all(p <= 1.0 for p in pct.values()), f"d4rl train data: {windows} windows, {transitions} transitions")
+    return str(npz), pct
+
+
+def _report_d4rl(tag: str, card: str, trainer, probe) -> float:
+    """Checks and prints what the probe measured in a D4RL train phase (no
+    val split: no val pass to count)."""
+    _check(trainer.device.type == "cuda", f"{tag}: trained on {trainer.device}")
+    _check(probe.epoch_steps == [D4RL_BATCHES, D4RL_BATCHES], f"{tag}: epochs {probe.epoch_steps}")
+    _check(all(n == 0 for n in probe.step_launches), f"{tag}: jitter_normalize launched {probe.step_launches}")
+    rows = [r for r in _metrics_rows(trainer.ckpt.dir) if any(k.startswith("train/") for k in r)]
+    _check(bool(rows) and all(np.isfinite(v) for r in rows for k, v in r.items() if k.startswith("train/")),
+           f"{tag}: non-finite or missing train metrics")
+    ms = probe.ms_per_step()
+    epoch1 = trainer.batch_wait_ms[-probe.epoch_steps[-1]:]
+    waits = {step: sum(probe.syncs[step].values()) for step in (TIMED_TO + 1, TIMED_TO + 2)}
+    print(
+        f"[{tag}] {probe.steps_seen} steps in 2 epochs of {D4RL_BATCHES}: {ms:.3f} ms/step "
+        f"({1e3 / ms:.2f} steps/s) over steps {TIMED_FROM + 1}-{TIMED_TO} of the second epoch | "
+        f"profile of steps {PROFILE_FROM + 1}-{PROFILE_FROM + PROFILE_STEPS}: {probe.wall_ms:.3f} ms/step "
+        f"under the profiler, device kernels {probe.device_ms:.3f} ms/step, busy "
+        f"{probe.device_ms / probe.wall_ms:.1%}; {probe.kernels:.0f} kernels and {probe.copies:.1f} copies "
+        f"per step | host waits a non-logging / logging step {waits[TIMED_TO + 1]} / {waits[TIMED_TO + 2]}, "
+        f"at: {_sites(probe.syncs[TIMED_TO + 2])} | loader wait per step (second epoch) median "
+        f"{statistics.median(epoch1):.3f} ms, max {max(epoch1):.3f} ms | {train_loss_line(rows)} | "
+        f"jitter_normalize launches {sum(probe.step_launches)} | {card}",
+        flush=True,
+    )
+    return ms
+
+
+def phase_train_d4rl(card: str, root: str) -> tuple:
+    """experiment=play_lmp_d4rl, then experiment=tacorl_d4rl grafted from
+    that run, then experiment=cql_d4rl, at their composed widths through
+    train.main on the antmaze-shaped .npz: 2 epochs of 12 steps each.
+    Returns the jitter kernel's launches and the two hierarchical run
+    directories."""
+    from tacorl_tpu_torch import train
+
+    npz, pct = _d4rl_train_data(root)
+    runs = {
+        "play_lmp_d4rl": [f"datamodule.train_percentage={pct['play']}"],
+        "tacorl_d4rl": [f"datamodule.train_percentage={pct['play']}", f"play_lmp_dir={root}/play_lmp_d4rl"],
+        "cql_d4rl": [f"datamodule.train_percentage={pct['transition']}"],
+    }
+    jitter_normalize.launches = 0
+    shift_jitter_normalize.launches = 0
+    lines = []
+    for experiment, extra in runs.items():
+        probe = _TrainProbe()
+        t0 = time.perf_counter()
+        trainer = train.main(
+            [f"experiment={experiment}", f"dataset_path={npz}", f"run_dir={root}/{experiment}",
+             f"trainer.max_steps={TRAIN_STEPS}", f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}", *extra],
+            callbacks=[probe],
+        )
+        wall = time.perf_counter() - t0
+        module = probe.module
+        after = trainer.state.net.state_dict()
+
+        def changed(part):
+            keys = [k for k in probe.before if k.split(".")[0] == part]
+            return bool(keys) and any(not torch.equal(probe.before[k], after[k]) for k in keys)
+
+        if experiment == "play_lmp_d4rl":
+            _check(module.net.plan_recognition.d_model == 32, "play_lmp_d4rl: d_model not padded to 32")
+            _check(all(changed(p) for p in ("plan_recognition", "plan_proposal", "action_decoder")),
+                   "play_lmp_d4rl: a part did not change")
+        elif experiment == "tacorl_d4rl":
+            pr = [k for k in probe.before if k.startswith("plan_recognition.")]
+            _check(bool(pr) and all(torch.equal(probe.before[k], after[k]) for k in pr),
+                   "tacorl_d4rl: the frozen posterior changed")
+            _check(all(changed(p) for p in TRAINED), "tacorl_d4rl: actor, critics or decoder did not change")
+        else:
+            _check(all(changed(p) for p in ("actor", "q1", "q2")), "cql_d4rl: actor or critics did not change")
+        ms = _report_d4rl(f"train_d4rl/{experiment}", card, trainer, probe)
+        lines.append(f"{experiment} {ms:.3f} ms/step, train.main {wall:.1f} s")
+        del trainer, probe
+        torch.cuda.empty_cache()
+    launches = {"jitter_normalize": jitter_normalize.launches, "shift_jitter_normalize": shift_jitter_normalize.launches}
+    _check(launches["jitter_normalize"] == 0 and launches["shift_jitter_normalize"] == 0,
+           f"train_d4rl: kernel launches {launches}")
+    print(f"[train_d4rl] {'; '.join(lines)} | posterior d_model 29 -> 32 at 8 heads, frozen and bit-unchanged "
+          f"in stage 2; actor, critics and decoder changed | kernel launches {launches} | {card}", flush=True)
+    return launches, (f"{root}/play_lmp_d4rl", f"{root}/tacorl_d4rl")
+
+
+def phase_rollout_d4rl(card: str, run_dirs) -> dict:
+    """Both hierarchical D4RL agents at full width (train_d4rl's runs,
+    loaded back through load_module_from_checkpoint) on
+    FakeD4RLEnv(obs_dim=29, act_dim=8, 60 steps), plan_duration 15:
+    episodes, ms per decode step (agent + env.step), ms per replan, env
+    steps/s, kernels per decode step and per replan."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tacorl_tpu_torch.envs.fake_d4rl import FakeD4RLEnv
+    from tacorl_tpu_torch.evaluation.agents import make_d4rl_agent
+
+    jitter_normalize.launches = 0
+    shift_jitter_normalize.launches = 0
+    lines = []
+    for run_dir in run_dirs:
+        module, state = load_module_from_checkpoint(run_dir, device="cuda")
+        agent, manager = make_d4rl_agent(module, state, D4RL_PLAN_DURATION)
+        log = _ActionLog(agent)
+        env = _TimedEnv(FakeD4RLEnv(obs_dim=D4RL_OBS, act_dim=D4RL_ACT, max_episode_steps=ROLLOUT_STEPS), log)
+        t0 = time.perf_counter()
+        outs = [manager.episode_rollout(log, env) for _ in range(D4RL_ROLLOUTS)]
+        wall = time.perf_counter() - t0
+        steps = len(env.step_ms)
+        acts = np.stack(log.actions)
+        _check(steps == sum(o["episode_length"] for o in outs) and acts.shape == (steps, D4RL_ACT)
+               and bool(np.isfinite(acts).all()), f"rollout_d4rl {module.name}: actions {acts.shape}")
+        _check(all(np.isfinite(o["score"]) for o in outs), f"rollout_d4rl {module.name}: scores")
+        obs, goal = env.env.reset(), env.env.target_goal
+        g = torch.Generator(device="cuda").manual_seed(3)
+        replan_ms = []
+        for _ in range(REPLANS):
+            t1 = time.perf_counter()
+            plan = agent.propose_plan_d4rl(obs, goal, None, g)
+            torch.cuda.synchronize()
+            replan_ms.append((time.perf_counter() - t1) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(PROFILE_DECODE_STEPS):
+                obs = env.env.step(agent.decode_step({"observation": obs}, plan, None, g))[0]
+            torch.cuda.synchronize()
+        per_decode, copies, device_ms = _kernel_counts(prof.key_averages(), PROFILE_DECODE_STEPS)
+        step_ms = statistics.median(env.step_ms)
+        lines.append(
+            f"{type(agent).__name__} + {type(manager).__name__}: {len(outs)} episodes, {steps} env steps in "
+            f"{wall:.3f} s ({steps / wall:.1f} env steps/s), successes {sum(o['success'] for o in outs)}, "
+            f"decode step (agent + env.step) median {step_ms:.3f} ms, replan (propose + sync) median "
+            f"{statistics.median(replan_ms[2:]):.3f} ms, {per_decode:.1f} kernels and {copies:.1f} copies per "
+            f"decode step, device {device_ms:.3f} ms per decode step (busy {device_ms / step_ms:.1%})"
+        )
+        del module, state, agent
+        torch.cuda.empty_cache()
+    launches = {"jitter_normalize": jitter_normalize.launches, "shift_jitter_normalize": shift_jitter_normalize.launches}
+    _check(launches["jitter_normalize"] == 0 and launches["shift_jitter_normalize"] == 0,
+           f"rollout_d4rl: kernel launches {launches}")
+    print(f"[rollout_d4rl] FakeD4RLEnv({D4RL_OBS}, {D4RL_ACT}), {ROLLOUT_STEPS} steps, plan_duration "
+          f"{D4RL_PLAN_DURATION}: " + " | ".join(lines) + f" | kernel launches {launches} | {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2163,16 +2436,23 @@ def main() -> int:
         flat_data, pct = _flat_train_data(tmp)
         launches_cql = phase_train_cql(card, flat_data, pct, f"{tmp}/cql")
         launches_cql_state = phase_train_cql_state(card, flat_data, pct, f"{tmp}/cql_state")
+    phase_reference_d4rl()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_d4rl, d4rl_runs = phase_train_d4rl(card, tmp)
+        rollout_d4rl = phase_rollout_d4rl(card, d4rl_runs)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
         "rollout": rollout["jitter_normalize"], "rollout_tacorl": rollout_tacorl["jitter_normalize"],
         "train": launches_train, "train_tacorl": launches_train_tacorl,
         "train_cql": launches_cql, "train_cql_state": launches_cql_state,
+        "train_d4rl": launches_d4rl["jitter_normalize"], "rollout_d4rl": rollout_d4rl["jitter_normalize"],
     }
     shift["launches_by_path"] = {
         "augment": shift["launches"], "rollout": rollout["shift_jitter_normalize"],
         "rollout_tacorl": rollout_tacorl["shift_jitter_normalize"],
+        "train_d4rl": launches_d4rl["shift_jitter_normalize"],
+        "rollout_d4rl": rollout_d4rl["shift_jitter_normalize"],
     }
     print(json.dumps({"kernels": [kernel, shift]}))
     print(card)

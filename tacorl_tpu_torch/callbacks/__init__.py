@@ -1,7 +1,6 @@
 """Trainer callbacks (port of tacorl_tpu/callbacks). Exported: what is
-ported. ``RolloutD4RLCallback`` and ``TSNEPlot`` wait for ROADMAP Queue 1,
-items 14 and 17: a config that names one fails in ``config.get_class``
-with an error that names ROADMAP."""
+ported. ``TSNEPlot`` waits for ROADMAP Queue 1, item 17: a config that
+names it fails in ``config.get_class`` with an error that names ROADMAP."""
 
 from tacorl_tpu_torch.callbacks.base import Callback  # noqa: F401
 from tacorl_tpu_torch.callbacks.horizon import (  # noqa: F401
@@ -18,5 +17,6 @@ from tacorl_tpu_torch.callbacks.kl_schedule import (  # noqa: F401
 )
 from tacorl_tpu_torch.callbacks.rollout import (  # noqa: F401
     RolloutCallback,
+    RolloutD4RLCallback,
     RolloutLongHorizonCallback,
 )

@@ -1,6 +1,7 @@
-"""In-training CALVIN rollout evaluation callbacks (port of
+"""In-training rollout evaluation callbacks (port of
 tacorl_tpu/callbacks/rollout.py; reference: utils/callbacks/rollout.py:
-22-547, utils/callbacks/rollout_long_horizon.py:13-132).
+22-547, utils/callbacks/rollout_long_horizon.py:13-132,
+utils/callbacks/rollout_d4rl.py:17-182).
 
   * cadence by epochs, episodes (online RL), or batches, plus
     ``skip_first_n_epochs``; the batch cadence's position is the
@@ -13,6 +14,9 @@ tacorl_tpu/callbacks/rollout.py; reference: utils/callbacks/rollout.py:
     means, and an overall score that averages the two groups;
   * ``val_accuracy`` / ``val_episode_return`` / ``val_episode_length`` for
     the checkpoint monitor.
+
+``RolloutD4RLCallback`` scores a D4RL module with N plain episodes of its
+state env into ``val_accuracy`` and ``val_score`` (the normalized return).
 
 Each run builds the module's agent over ``trainer.state``
 (``evaluation/agents.py:make_agent``) and a fresh rollout manager
@@ -32,7 +36,7 @@ import numpy as np
 
 from tacorl_tpu_torch.callbacks.base import Callback
 from tacorl_tpu_torch.config import instantiate
-from tacorl_tpu_torch.evaluation.agents import make_agent
+from tacorl_tpu_torch.evaluation.agents import make_agent, make_d4rl_agent
 from tacorl_tpu_torch.evaluation.rollout_generator import (
     LongHorizonRolloutGenerator,
     SingleTaskRolloutGenerator,
@@ -40,7 +44,7 @@ from tacorl_tpu_torch.evaluation.rollout_generator import (
 
 logger = logging.getLogger("tacorl_tpu_torch")
 
-__all__ = ["RolloutCallback", "RolloutLongHorizonCallback"]
+__all__ = ["RolloutCallback", "RolloutLongHorizonCallback", "RolloutD4RLCallback"]
 
 RANK, WORLD = 0, 1  # one process until ROADMAP item 16
 
@@ -322,3 +326,39 @@ class RolloutLongHorizonCallback(_BaseRolloutCallback):
             f"LH_{i + 1}_accuracy": float(accum[i] / len(tasks))
             for i in range(self.tasks_per_rollout)
         })
+
+
+class RolloutD4RLCallback(Callback):
+    """In-training D4RL evaluation: ``num_rollouts`` episodes of ``env``
+    every ``every_n_epochs`` epochs -> ``val_accuracy`` (the success rate)
+    and ``val_score`` (the mean normalized return), for the checkpoint
+    monitor. The env persists across evaluations (its goal draws run on);
+    each evaluation builds a fresh rollout manager, whose generator starts
+    anew from seed 0, as the JAX callback's manager restarts its key."""
+
+    def __init__(
+        self,
+        env: Any,
+        num_rollouts: int = 10,
+        every_n_epochs: int = 1,
+        plan_duration: int = 15,
+    ):
+        self.env = instantiate(env) if isinstance(env, dict) else env
+        self.num_rollouts = num_rollouts
+        self.every_n_epochs = every_n_epochs
+        self.plan_duration = plan_duration
+
+    def on_validation_end(self, trainer, module, metrics, outputs, epoch):
+        if epoch % self.every_n_epochs != 0:
+            return
+        agent, manager = make_d4rl_agent(module, trainer.state, self.plan_duration)
+        successes, scores = [], []
+        for _ in list(range(self.num_rollouts))[RANK::WORLD]:
+            out = manager.episode_rollout(agent, self.env)
+            successes.append(float(out["success"]))
+            scores.append(float(out["score"]))
+        if not successes:
+            return
+        result = {"val_accuracy": float(np.mean(successes)), "val_score": float(np.mean(scores))}
+        trainer.sink.log(result, trainer.global_step)
+        trainer._last_val_metrics.update(result)

@@ -28,8 +28,11 @@ __all__ = [
     "FlatPolicyAgent",
     "LatentPlanAgent",
     "TACORLAgent",
+    "LatentPlanD4RLAgent",
+    "TACORLD4RLAgent",
     "ScriptedExpertAgent",
     "make_agent",
+    "make_d4rl_agent",
 ]
 
 
@@ -157,6 +160,69 @@ class TACORLAgent(_ModuleAgent):
             self._draws(draws), generator,
         )
         return self._action(action)
+
+
+class LatentPlanD4RLAgent(_ModuleAgent):
+    """State-based Play-LMP rollout policy (rollout_manager_d4rl.py:
+    107-170): a plan sampled from the prior given (obs, goal xy)
+    (``draws["eps"]``), the decoder streamed over the observation vectors
+    (``draws["u_mix"]``, ``draws["u"]``)."""
+
+    @torch.inference_mode()
+    def propose_plan_d4rl(self, obs, goal_xy, draws=None, generator=None) -> torch.Tensor:
+        self.carry = None
+        eps = (self._draws(draws) or {}).get("eps")
+        dist = self.net.propose_plan(self._vector(obs), self._vector(goal_xy))
+        return dist.sample(generator, eps=eps)
+
+    @torch.inference_mode()
+    def decode_step(self, obs: Dict, plan, draws=None, generator=None) -> np.ndarray:
+        action, self.carry = self.net.decode_action(
+            plan, self._vector(obs["observation"]), self.carry, self._draws(draws), generator
+        )
+        return self._action(action)
+
+    def _vector(self, x) -> torch.Tensor:
+        return self._batched(np.asarray(x, dtype=np.float32))
+
+
+class TACORLD4RLAgent(LatentPlanD4RLAgent):
+    """State-based TACO-RL rollout policy (rollout_manager_d4rl.py:173-250):
+    the RL actor's deterministic plan from concat(obs, goal xy), the
+    (finetuned) decoder streamed over the observation vectors."""
+
+    def __init__(self, module, state):
+        super().__init__(module, state)
+        self._propose, self._decode = module.make_plan_and_decode_fns()
+
+    @torch.inference_mode()
+    def propose_plan_d4rl(self, obs, goal_xy, draws=None, generator=None) -> torch.Tensor:
+        self.carry = None
+        return self._propose(
+            self.net, self._vector(np.concatenate([obs, goal_xy])), self._draws(draws), generator
+        )
+
+    @torch.inference_mode()
+    def decode_step(self, obs: Dict, plan, draws=None, generator=None) -> np.ndarray:
+        action, self.carry = self._decode(
+            self.net, plan, self._vector(obs["observation"]), self.carry, self._draws(draws), generator
+        )
+        return self._action(action)
+
+
+def make_d4rl_agent(module, state, plan_duration: int = 15, draw_source=None):
+    """Agent and rollout manager (an instance, seed 0, as the JAX one) for a
+    D4RL module: the hierarchical agents for ``play_lmp_d4rl`` and
+    ``tacorl_d4rl``, else the flat policy on concat(obs, goal)
+    (``scripts/evaluate_d4rl.py:28-43``). ``draw_source`` goes to the
+    manager."""
+    from tacorl_tpu_torch.evaluation import rollout_manager_d4rl as rm
+
+    if module.name == "play_lmp_d4rl":
+        return LatentPlanD4RLAgent(module, state), rm.LatentPlanRolloutD4RL(plan_duration, draw_source=draw_source)
+    if module.name == "tacorl_d4rl":
+        return TACORLD4RLAgent(module, state), rm.TACORLRolloutD4RL(plan_duration, draw_source=draw_source)
+    return FlatPolicyAgent(module, state), rm.RLRolloutD4RL(draw_source=draw_source)
 
 
 class ScriptedExpertAgent:

@@ -1,7 +1,10 @@
 """Logistic-mixture action decoder (port of ``StackedRNN`` in "rnn" mode
 and ``ActionDecoderLogistic`` of tacorl_tpu/networks/action_decoder.py).
 state_dict keys follow the reference: ``rnn.{weight,bias}_{ih,hh}_l{i}``,
-``mean_fc``, ``log_scale_fc``, ``prob_fc``, ``gripper_fc``.
+``mean_fc``, ``log_scale_fc``, ``prob_fc`` and, with a discrete gripper,
+``gripper_fc``. The continuous decoder (``discrete_gripper=False``, the
+D4RL branch's) has no ``gripper_fc``: every action column is a
+logistic-mixture column.
 
 The streaming rollout path (``act``) carries the RNN state explicitly, as
 the JAX package does; the carry is ``nn.RNN``'s hidden state,
@@ -88,7 +91,8 @@ def _setup_action_bounds(
 
 class ActionDecoderLogistic(nn.Module):
     """RNN over [latent_plan; perceptual_emb; (goal)] with a discretized
-    logistic-mixture head and a discrete gripper head."""
+    logistic-mixture head and, with ``discrete_gripper``, a discrete gripper
+    head (the last action column); without it every column is continuous."""
 
     def __init__(
         self,
@@ -116,15 +120,12 @@ class ActionDecoderLogistic(nn.Module):
         # nn.RNN has its own schedule, so both are accepted and unused.
         if bf16_matmul:
             raise NotImplementedError("bf16_matmul is not ported yet (see ROADMAP.md)")
-        if not discrete_gripper:
-            raise NotImplementedError(
-                "the continuous-gripper decoder is not ported yet (see ROADMAP.md)"
-            )
         self.include_goal = include_goal
+        self.discrete_gripper = discrete_gripper
         self.gripper_alpha = gripper_alpha
         self.num_classes = num_classes
         self.n_mixtures = n_mixtures
-        self.cont_features = out_features - 1
+        self.cont_features = out_features - (1 if discrete_gripper else 0)
         in_features = latent_plan_dim + state_dim + (goal_dim if include_goal else 0)
         self.rnn = StackedRNN(
             rnn_model.replace("_decoder", ""), in_features, hidden_size,
@@ -134,7 +135,7 @@ class ActionDecoderLogistic(nn.Module):
         self.mean_fc = TorchDense(hidden_size, n_out)
         self.log_scale_fc = TorchDense(hidden_size, n_out)
         self.prob_fc = TorchDense(hidden_size, n_out)
-        self.gripper_fc = TorchDense(hidden_size, 2)
+        self.gripper_fc = TorchDense(hidden_size, 2) if discrete_gripper else None
         lo, hi, grip = _setup_action_bounds(
             list(act_max_bound), list(act_min_bound), discrete_gripper
         )
@@ -150,7 +151,8 @@ class ActionDecoderLogistic(nn.Module):
         carry: Optional[Tensor] = None,
     ):
         """Returns (logit_probs, log_scales, means, gripper_logits, carry);
-        mixture params are (B, T, A, K)."""
+        mixture params are (B, T, A, K); gripper_logits is None without a
+        discrete gripper."""
         b, s = perceptual_emb.shape[:2]
         parts = [latent_plan[:, None].expand(b, s, latent_plan.shape[-1]), perceptual_emb]
         if self.include_goal:
@@ -160,7 +162,8 @@ class ActionDecoderLogistic(nn.Module):
         logit_probs = self.prob_fc(h).reshape(shape)
         means = self.mean_fc(h).reshape(shape)
         log_scales = torch.clamp(self.log_scale_fc(h), min=LOG_SIG_MIN).reshape(shape)
-        return logit_probs, log_scales, means, self.gripper_fc(h), carry
+        gripper_logits = self.gripper_fc(h) if self.discrete_gripper else None
+        return logit_probs, log_scales, means, gripper_logits, carry
 
     # -- losses ---------------------------------------------------------
 
@@ -173,6 +176,8 @@ class ActionDecoderLogistic(nn.Module):
         return -torch.sum(lp, dim=-1).mean()
 
     def _loss(self, logit_probs, log_scales, means, gripper_logits, actions) -> Tensor:
+        if not self.discrete_gripper:
+            return self._logistic_loss(logit_probs, log_scales, means, actions)
         logistics_loss = self._logistic_loss(
             logit_probs, log_scales, means, actions[..., :-1]
         )
@@ -189,7 +194,9 @@ class ActionDecoderLogistic(nn.Module):
         actions: Tensor,
         latent_goal: Optional[Tensor] = None,
     ) -> Tensor:
-        """The imitation loss alone (the TACO-RL decoder finetune)."""
+        """The imitation loss alone (the TACO-RL decoder finetune, the D4RL
+        Play-LMP's loss): the mixture NLL, plus the gripper cross-entropy
+        with a discrete gripper."""
         logit_probs, log_scales, means, gripper_logits, _ = self(
             latent_plan, perceptual_emb, latent_goal
         )
@@ -201,19 +208,26 @@ class ActionDecoderLogistic(nn.Module):
         perceptual_emb: Tensor,
         actions: Tensor,
         latent_goal: Optional[Tensor] = None,
+        draws: Optional[Dict[str, Tensor]] = None,
+        generator: Optional[torch.Generator] = None,
     ) -> Tuple[Tensor, Tensor]:
-        """Returns (loss, predicted gripper action (B, T)).
+        """With a discrete gripper: (loss, predicted gripper action (B, T)).
 
         The JAX ``loss_and_act`` also draws the continuous action columns
         from the mixture, but the train step reads only the gripper column
         of its prediction, and that column is the argmax of the gripper
         logits mapped to the gripper bounds. So the port computes that
-        column directly and makes no continuous draw here."""
+        column directly and makes no continuous draw here.
+
+        Without a discrete gripper: (loss, the mixture sample (B, T, A)),
+        ``draws`` and ``generator`` as in ``act``."""
         logit_probs, log_scales, means, gripper_logits, _ = self(
             latent_plan, perceptual_emb, latent_goal
         )
-        pred_gripper = self.gripper_bounds[torch.argmax(gripper_logits, dim=-1)]
         loss = self._loss(logit_probs, log_scales, means, gripper_logits, actions)
+        if not self.discrete_gripper:
+            return loss, self._sample(logit_probs, log_scales, means, None, draws, generator)
+        pred_gripper = self.gripper_bounds[torch.argmax(gripper_logits, dim=-1)]
         return loss, pred_gripper
 
     def act(
@@ -226,7 +240,8 @@ class ActionDecoderLogistic(nn.Module):
         generator: Optional[torch.Generator] = None,
     ) -> Tuple[Tensor, Tensor]:
         """Streaming action sampling with an explicit RNN carry (None
-        starts from zeros): returns (actions (B, T, A + 1), carry).
+        starts from zeros): returns (actions (B, T, A + 1) with a discrete
+        gripper, else (B, T, A), and the carry).
         ``draws`` may hold ``u_mix`` (B, T, A, K), the uniforms of the
         Gumbel-max component choice, and ``u`` (B, T, A), those of the
         logistic inversion; what is missing is drawn from ``generator`` on
@@ -239,8 +254,8 @@ class ActionDecoderLogistic(nn.Module):
     def _sample(
         self, logit_probs, log_scales, means, gripper_logits, draws=None, generator=None
     ) -> Tensor:
-        """A mixture sample of the continuous columns and the gripper column
-        ``gripper_bounds[argmax(gripper_logits)]``."""
+        """A mixture sample of the continuous columns and, with a discrete
+        gripper, the gripper column ``gripper_bounds[argmax(gripper_logits)]``."""
         draws = draws or {}
         u_mix, u = draws.get("u_mix"), draws.get("u")
         if u_mix is None:
@@ -248,6 +263,8 @@ class ActionDecoderLogistic(nn.Module):
         if u is None:
             u = _uniform(means.shape[:-1], means, generator)
         actions = logistic_mixture_sample(logit_probs, means, log_scales, u_mix, u)
+        if not self.discrete_gripper:
+            return actions
         grip = self.gripper_bounds[torch.argmax(gripper_logits, dim=-1)]
         return torch.cat([actions, grip[..., None]], dim=-1)
 

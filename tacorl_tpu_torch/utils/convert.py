@@ -5,7 +5,10 @@
 the inverse of ``tacorl_tpu/utils/torch_convert.py:assemble_play_lmp``;
 ``cql_state_dict_from_jax`` and ``tacorl_state_dict_from_jax`` do the same
 for the CQL and TACO-RL params and target critics (the inverses of
-``assemble_cql`` and ``assemble_tacorl``); the per-network functions do it
+``assemble_cql`` and ``assemble_tacorl``);
+``play_lmp_d4rl_state_dict_from_jax`` and ``tacorl_d4rl_state_dict_from_jax``
+do it for the D4RL branch's state-based modules (no encoders; the
+continuous decoder has no ``gripper_fc``); the per-network functions do it
 for one network's subtree. The keys are
 the reference TACO-RL layout, so the same state_dict is what a released
 reference checkpoint holds. Layouts:
@@ -44,6 +47,8 @@ __all__ = [
     "play_lmp_state_dict_from_jax",
     "cql_state_dict_from_jax",
     "tacorl_state_dict_from_jax",
+    "play_lmp_d4rl_state_dict_from_jax",
+    "tacorl_d4rl_state_dict_from_jax",
 ]
 
 StateDict = Dict[str, torch.Tensor]
@@ -177,6 +182,8 @@ def mlp_policy_state_dict(p: Mapping) -> StateDict:
 
 
 def action_decoder_state_dict(p: Mapping) -> StateDict:
+    """``ActionDecoderLogistic``: the RNN cells, the mixture heads and, with
+    a discrete gripper, ``gripper_fc`` (the continuous decoder has none)."""
     sd: StateDict = {}
     rnn = p["rnn"]
     i = 0
@@ -294,4 +301,25 @@ def play_lmp_state_dict_from_jax(
     sd.update(_prefixed(
         "action_decoder.", action_decoder_state_dict(params["action_decoder"])
     ))
+    return sd
+
+
+def play_lmp_d4rl_state_dict_from_jax(params: Mapping[str, Any]) -> StateDict:
+    """JAX ``PlayLMPD4RLNet`` params -> port ``PlayLMPD4RLNet`` state_dict:
+    ``plan_recognition.*``, ``plan_proposal.policy.*``, ``action_decoder.*``."""
+    sd = _prefixed("plan_recognition.", plan_recognition_state_dict(params["plan_recognition"]))
+    sd.update(_prefixed(
+        "plan_proposal.policy.", mlp_policy_state_dict(params["plan_proposal"]["policy"])
+    ))
+    sd.update(_prefixed("action_decoder.", action_decoder_state_dict(params["action_decoder"])))
+    return sd
+
+
+def tacorl_d4rl_state_dict_from_jax(params: Mapping[str, Any], aux: Mapping[str, Any]) -> StateDict:
+    """JAX ``TACORLD4RLModule`` params and aux -> port ``TACORLD4RLNet``
+    state_dict: the flat CQL keys (no encoders), the frozen posterior and
+    the decoder."""
+    sd = cql_state_dict_from_jax(params, aux, modalities=())
+    sd.update(_prefixed("plan_recognition.", plan_recognition_state_dict(params["plan_recognition"])))
+    sd.update(_prefixed("action_decoder.", action_decoder_state_dict(params["action_decoder"])))
     return sd

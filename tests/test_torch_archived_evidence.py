@@ -3,7 +3,10 @@
 PERF.md and ROADMAP.md, in the manner of tests/test_archived_evidence.py:
 the run's composed config, its best monitored ``val_accuracy`` and step,
 the goal-horizon series, the offline score of the best checkpoint over all
-160 validation spans (40 a task), and the card named in its README."""
+160 validation spans (40 a task), and the card named in its README. Also
+the D4RL hierarchy's H100 run (``results/torch_r7_d4rl/``): its two
+recipes, each stage's best ``val_accuracy``, stage 2's last 10
+evaluations, the three 100-rollout scores and the walls."""
 
 import json
 from pathlib import Path
@@ -70,4 +73,69 @@ def test_readme_names_the_card_and_the_walls():
     assert (RUN / "card.txt").read_text().strip() == CARD
     walls = dict(line.split() for line in (RUN / "walls.txt").read_text().splitlines())
     assert set(walls) == {"make_flagship_data", "train", "evaluate"}
+    assert all(f"{float(v):.1f}" in readme for v in walls.values())
+
+
+# -- the D4RL hierarchy (results/torch_r7_d4rl/, made by its run.sh) ----------------------
+
+D4RL = RUN.parent / "torch_r7_d4rl"
+D4RL_BEST = {"lmp": (5412, 1.0), "tacorl": (22, 1.0)}  # (step, val_accuracy), the first best
+D4RL_TAIL = [1.0] * 10  # stage 2's last 10 evaluations
+# 100 rollouts each; the archive: 1.0 each
+D4RL_SCORES = {"lmp_eval_best": 0.98, "tacorl_eval_best": 1.0, "tacorl_eval_final": 1.0}
+SUCCESS_BAR = 0.8  # tests/test_train_to_success_d4rl.py
+
+
+def _d4rl_series(stage, key):
+    with open(D4RL / f"{stage}_metrics.jsonl") as f:
+        return [(r["step"], r[key]) for r in map(json.loads, f) if key in r]
+
+
+@pytest.mark.parametrize("stage, experiment, max_steps", [
+    ("lmp", "play_lmp_d4rl_fake", 8000), ("tacorl", "tacorl_d4rl_fake", 3000),
+])
+def test_the_d4rl_runs_are_the_archived_recipe(stage, experiment, max_steps):
+    cfg = json.loads((D4RL / f"{stage}_config.json").read_text())
+    assert cfg["experiment_name"] == experiment and cfg["seed"] == 42
+    assert cfg["trainer"]["max_steps"] == max_steps and cfg["datamodule"]["batch_size"] == 64
+    assert cfg["ckpt_monitor"] == "val_accuracy" and cfg["ckpt_mode"] == "max"
+    rollout = cfg["callbacks"]["rollout"]
+    assert rollout["num_rollouts"] == 20 and rollout["plan_duration"] == 8
+    assert rollout["every_n_epochs"] == (5 if stage == "lmp" else 1)
+    assert "device" not in cfg  # the card, as every port entry point defaults
+    if stage == "tacorl":
+        assert cfg["module"]["bc_epochs"] == 1 and cfg["module"]["finetune_action_decoder"] is True
+
+
+@pytest.mark.parametrize("stage", ["lmp", "tacorl"])
+def test_d4rl_best_val_accuracy_and_its_step(stage):
+    curve = _d4rl_series(stage, "val_accuracy")
+    step, best = max(curve, key=lambda sa: sa[1])
+    assert (step, best) == D4RL_BEST[stage], curve
+    assert best >= SUCCESS_BAR
+
+
+def test_d4rl_stage_one_scores_above_zero():
+    assert max(v for _, v in _d4rl_series("lmp", "val_score")) > 0.0
+
+
+def test_d4rl_cql_phase_recovers_in_the_tail():
+    tail = [v for _, v in _d4rl_series("tacorl", "val_accuracy")][-10:]
+    assert tail == D4RL_TAIL
+    assert max(tail) >= SUCCESS_BAR
+
+
+@pytest.mark.parametrize("name", sorted(D4RL_SCORES))
+def test_d4rl_scores_over_100_rollouts(name):
+    got = json.loads((D4RL / f"d4rl_{name}.json").read_text())
+    assert got["num_rollouts"] == 100
+    assert got["accuracy"] == D4RL_SCORES[name]
+
+
+def test_d4rl_readme_names_the_card_and_the_walls():
+    readme = (D4RL / "README.md").read_text()
+    assert CARD in readme and (D4RL / "card.txt").read_text().strip() == CARD
+    walls = dict(line.split() for line in (D4RL / "walls.txt").read_text().splitlines())
+    assert set(walls) == {"make_data", "train_lmp", "train_tacorl", "eval_lmp_best", "eval_tacorl_best",
+                          "eval_tacorl_final"}
     assert all(f"{float(v):.1f}" in readme for v in walls.values())

@@ -103,9 +103,13 @@ def test_increase_horizon_linear_matches_jax(strategies):
 )
 def test_callbacks_not_ported_name_the_roadmap(target):
     """A target the port lacks fails naming ROADMAP; the uncertainty-gated
-    horizon is ported now, and its target resolves to the port's class."""
+    horizon and the D4RL rollout callback are ported now, and their targets
+    resolve to the port's classes."""
     if target.endswith("IncreaseHorizonUncertainty"):
         assert get_class(target) is horizon_uncertainty.IncreaseHorizonUncertainty
+        return
+    if target.endswith("RolloutD4RLCallback"):
+        assert get_class(target) is rollout.RolloutD4RLCallback is callbacks.RolloutD4RLCallback
         return
     with pytest.raises(ImportError, match="ROADMAP"):
         get_class(target)

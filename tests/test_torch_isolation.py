@@ -82,6 +82,13 @@ def probe():
         "tacorl_tpu_torch.data.saved_transitions",
         "tacorl_tpu_torch.networks.encoders",
         "tacorl_tpu_torch.make_flagship_data",
+        "tacorl_tpu_torch.data.d4rl_dataset",
+        "tacorl_tpu_torch.data.d4rl_datamodule",
+        "tacorl_tpu_torch.envs.fake_d4rl",
+        "tacorl_tpu_torch.modules.play_lmp_d4rl",
+        "tacorl_tpu_torch.modules.tacorl_d4rl",
+        "tacorl_tpu_torch.evaluation.rollout_manager_d4rl",
+        "tacorl_tpu_torch.evaluate_d4rl",
     ],
 )
 def test_probe_imported_every_module(probe, name):
@@ -108,6 +115,14 @@ def _tiny_cfg():
     return chip_smoke._tiny_cfg()
 
 
+def _d4rl_cfg():
+    return {"state_dim": 6, "action_dim": 3, "latent_plan_dim": 4,
+            "plan_recognition": {"num_heads": 2, "num_layers": 1, "encoder_hidden_size": 8,
+                                 "fc_hidden_size": 8},
+            "plan_proposal": {"policy": {"num_layers": 1, "hidden_dim": 8}},
+            "action_decoder": {"hidden_size": 8, "num_layers": 1, "n_mixtures": 2}}
+
+
 def _cql_cfg():
     import chip_smoke
 
@@ -121,11 +136,13 @@ def _cql_cfg():
     "entry",
     ["resolve_device", "DeviceTransforms", "PlayLMPModule", "CQLModule", "StateCQLModule", "TACORLModule",
      "load_module_from_checkpoint", "LatentPlanAgent", "TACORLAgent", "FlatPolicyAgent",
-     "make_agent", "evaluate.main", "Trainer", "train.main", "DevicePut"],
+     "make_agent", "evaluate.main", "Trainer", "train.main", "DevicePut", "PlayLMPD4RLModule",
+     "TACORLD4RLModule", "LatentPlanD4RLAgent", "TACORLD4RLAgent", "make_d4rl_agent",
+     "evaluate_d4rl.main"],
 )
 def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     _no_cuda()
-    from tacorl_tpu_torch import evaluate, train
+    from tacorl_tpu_torch import evaluate, evaluate_d4rl, train
     from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
     from tacorl_tpu_torch.core.trainer import Trainer
     from tacorl_tpu_torch.data.loader import DevicePut
@@ -139,6 +156,14 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     cfg = {"_target_": "tacorl_tpu.modules.play_lmp.PlayLMPModule", **_tiny_cfg()}
     lmp = PlayLMPModule(cfg, device="cpu")
     CheckpointManager(tmp_path, config={"module": cfg}).save(0, lmp.init_state(0))
+    from tacorl_tpu_torch.modules.play_lmp_d4rl import PlayLMPD4RLModule
+    from tacorl_tpu_torch.modules.tacorl_d4rl import TACORLD4RLModule
+
+    d4rl_cfg = {"_target_": "tacorl_tpu.modules.play_lmp_d4rl.PlayLMPD4RLModule", **_d4rl_cfg()}
+    d4rl_dir = tmp_path / "d4rl"
+    CheckpointManager(d4rl_dir, config={"module": d4rl_cfg}).save(
+        0, PlayLMPD4RLModule(d4rl_cfg, device="cpu").init_state(0)
+    )
     make = {
         "resolve_device": lambda: resolve_device(),
         "DeviceTransforms": lambda: DeviceTransforms({}),
@@ -157,6 +182,12 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "train.main": lambda: train.main([f"data_dir={tmp_path}", f"run_dir={tmp_path}"]),
         # the prefetch's put_fn
         "DevicePut": lambda: DevicePut(),
+        "PlayLMPD4RLModule": lambda: PlayLMPD4RLModule(_d4rl_cfg()),
+        "TACORLD4RLModule": lambda: TACORLD4RLModule({"play_lmp_dir": str(d4rl_dir)}),
+        "LatentPlanD4RLAgent": lambda: agents.LatentPlanD4RLAgent(PlayLMPD4RLModule(_d4rl_cfg()), None),
+        "TACORLD4RLAgent": lambda: agents.TACORLD4RLAgent(TACORLD4RLModule({"play_lmp_dir": str(d4rl_dir)}), None),
+        "make_d4rl_agent": lambda: agents.make_d4rl_agent(*load_module_from_checkpoint(d4rl_dir)),
+        "evaluate_d4rl.main": lambda: evaluate_d4rl.main([f"module_path={d4rl_dir}"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()

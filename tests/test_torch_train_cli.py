@@ -32,7 +32,8 @@ CONFIGS = REPO / "configs"
 
 @pytest.mark.parametrize(
     "experiment",
-    ["play_lmp_for_rl", "tacorl", "play_lmp_fake", "cql_fake", "cql_fake_state", "tacorl_fake"],
+    ["play_lmp_for_rl", "tacorl", "play_lmp_fake", "cql_fake", "cql_fake_state", "tacorl_fake",
+     "play_lmp_d4rl", "tacorl_d4rl", "cql_d4rl", "play_lmp_d4rl_fake", "tacorl_d4rl_fake"],
 )
 def test_compose_matches_jax_on_train_yaml(experiment):
     overrides = [f"experiment={experiment}", "data_dir=/data", "play_lmp_dir=/runs/lmp",
@@ -192,6 +193,85 @@ def test_state_based_cql_trains_on_saved_transitions(tmp_path):
     rows = _rows(run)
     assert all(np.isfinite(r["train/q1_loss"]) for r in rows if "train/q1_loss" in r)
     assert sum("validation/q1_loss" in r for r in rows) == 2
+
+
+# the D4RL fake experiments at tiny widths, on a small expert .npz
+D4RL_TINY = [
+    "+device=cpu", "datamodule.batch_size=16", "trainer.log_every_n_steps=1",
+    "callbacks.rollout.num_rollouts=2", "callbacks.rollout.env.max_episode_steps=6",
+]
+
+
+@pytest.fixture(scope="module")
+def d4rl_npz(tmp_path_factory):
+    from tacorl_tpu_torch.data.d4rl_dataset import generate_expert_d4rl
+
+    return generate_expert_d4rl(tmp_path_factory.mktemp("d4rl") / "expert.npz", n_episodes=4,
+                                legs_per_episode=2, seed=0)
+
+
+def test_d4rl_stage_one_chains_into_stage_two(d4rl_npz, tmp_path):
+    """play_lmp_d4rl_fake -> tacorl_d4rl_fake through train.main: the
+    rollout callback logs val_accuracy and val_score each epoch (the
+    datamodule has no val split), the monitored checkpoint keeps a best
+    step, stage 2 grafts stage 1's latest step and trains the BC warm-start
+    then CQL (bc_epochs: 1), and evaluate_d4rl scores both runs."""
+    from tacorl_tpu_torch import evaluate_d4rl
+
+    lmp, rl = tmp_path / "lmp", tmp_path / "rl"
+    t1 = train.main(D4RL_TINY + [
+        "experiment=play_lmp_d4rl_fake", f"dataset_path={d4rl_npz}", f"run_dir={lmp}",
+        "trainer.max_epochs=3", "module.plan_recognition.encoder_hidden_size=16",
+        "module.plan_recognition.fc_hidden_size=16", "module.action_decoder.hidden_size=16",
+    ])
+    assert t1.device == torch.device("cpu") and t1.datamodule.val_loader() is None
+    assert [type(cb).__name__ for cb in t1.callbacks] == ["KLLinearSchedule", "RolloutD4RLCallback"]
+    rows = _rows(lmp)
+    evals = [r for r in rows if "val_accuracy" in r]
+    assert len(evals) == 3 and all({"val_accuracy", "val_score"} <= set(r) for r in evals)
+    assert not any(k.startswith("validation/") for r in rows for k in r)
+    assert all(np.isfinite(r["train/random_plan_action_loss"]) for r in rows if "train/total_loss" in r)
+    manager = CheckpointManager(lmp, monitor="val_accuracy", mode="max")
+    assert manager.best_step() in manager.all_steps()
+    assert json.loads((lmp / "ckpts" / "metrics.json").read_text())  # monitored values were saved
+
+    t2 = train.main(D4RL_TINY + [
+        "experiment=tacorl_d4rl_fake", f"dataset_path={d4rl_npz}", f"play_lmp_dir={lmp}",
+        f"run_dir={rl}", "trainer.max_epochs=2", "module.q_network.hidden_dim=16",
+    ])
+    grafted = t2.state.net.plan_recognition.state_dict()
+    latest = CheckpointManager(lmp).restore(-1)["net"]
+    assert all(torch.equal(v, latest[f"plan_recognition.{k}"]) for k, v in grafted.items())
+    rows = _rows(rl)
+    assert sum("val_accuracy" in r for r in rows) == 2
+    actor_losses = [r["train/actor_loss"] for r in rows if "train/actor_loss" in r]
+    assert actor_losses and all(np.isfinite(actor_losses))
+    for run in (lmp, rl):
+        summary = evaluate_d4rl.main(["+device=cpu", f"module_path={run}", "epoch=best", "num_rollouts=2",
+                                      "env.max_episode_steps=6", f"filename={tmp_path / 'e.json'}"])
+        assert summary["num_rollouts"] == 2 and 0.0 <= summary["accuracy"] <= 1.0
+
+
+def test_cql_d4rl_trains_on_a_d4rl_npz(d4rl_npz, tmp_path):
+    """experiment=cql_d4rl (the state_based module) on goal-relabelled
+    transitions of an .npz through the D4RL datamodule, then the flat agent
+    scored by evaluate_d4rl on the 8-wide fake env."""
+    from tacorl_tpu_torch import evaluate_d4rl
+
+    run = tmp_path / "run"
+    trainer = train.main([
+        "+device=cpu", "experiment=cql_d4rl", f"dataset_path={d4rl_npz}", f"run_dir={run}",
+        "module.state_dim=8", "module.action_dim=4", "datamodule.batch_size=32",
+        "module.policy.hidden_dim=16", "module.q_network.hidden_dim=16",
+        "trainer.max_epochs=2", "trainer.log_every_n_steps=1",
+    ])
+    assert type(trainer.datamodule.train_dataset).__name__ == "D4RLTransitionDataset"
+    rows = _rows(run)
+    q1 = [r["train/q1_loss"] for r in rows if "train/q1_loss" in r]
+    assert len(q1) == trainer.global_step > 0 and all(np.isfinite(q1))
+    summary = evaluate_d4rl.main(["+device=cpu", f"module_path={run}", "num_rollouts=2",
+                                  "env.max_episode_steps=6", f"filename={tmp_path / 'e.json'}"])
+    assert summary["num_rollouts"] == 2
 
 
 def test_platform_key_does_not_pick_the_cpu(tmp_path):
