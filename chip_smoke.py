@@ -146,6 +146,27 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 FakeD4RLEnv(29, 8, 60 steps), plan_duration 15, 10 episodes
                 each: ms per decode step and per replan, env steps/s,
                 kernels per decode step, 0 kernel launches.
+ 26. reference_ril  at tiny float32 configs, card against CPU from the same
+                weights, batch and draws: one RIL train and val step (every
+                metric within rtol 1e-4), ``cem_optimize`` with and without
+                a gripper, RILAgent and OracleSubgoalAgent episodes through
+                RILRollout, CEM-refined FlatPolicyAgent and TACORLAgent
+                episodes (actions within 1e-4, grippers and outcomes equal).
+ 27. train_ril  experiment=ril at its composed width (lmp_vision_encoder,
+                goal encoder 256 -> 32 Tanh, MLP policies, batch 64, 200x200
+                uint8 -> 128x128 bf16) through train.main on phase 16's set,
+                2 epochs of 12 steps with phase 16's measurements, 4
+                jitter_normalize launches a step counted (the four image
+                leaves), the kernel against its plain version at (64, 3,
+                128, 128) bf16; then experiment=ril_fake_state on phase 21's
+                set with the rollout monitor, 0 launches, evaluate
+                epoch=best.
+ 28. rollout_ril  phase 27's ril_fake_state module with its learned high
+                level and with the oracle through RILRollout on the
+                ril_fake_state env, and the cql_fake_state (phase 22) and
+                TACO-RL (phase 18) modules without and with CEM, each
+                through evaluate_all_tasks: env steps/s, ms per decode step
+                and per replan, kernels a step, 0 kernel launches.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -178,6 +199,7 @@ from tacorl_tpu_torch.evaluation.manager import EvaluationManager
 from tacorl_tpu_torch.evaluation.rollout_generator import SingleTaskRolloutGenerator
 from tacorl_tpu_torch.modules.cql import CQLModule
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
+from tacorl_tpu_torch.modules.ril import LEAVES, RILModule
 from tacorl_tpu_torch.modules.tacorl import FROZEN, TACORLModule
 from tacorl_tpu_torch.ops import image_aug
 from tacorl_tpu_torch.ops._cuda_build import build_log, library_path, load_library
@@ -1180,7 +1202,7 @@ class _CpuDraws:
 
 class _ActionLog:
     """Forwards an agent's calls, keeps every action it returns and the
-    start time of the latest decode step."""
+    start time of the latest decode step (or flat policy step)."""
 
     def __init__(self, agent):
         self.agent, self.actions, self.t0 = agent, [], None
@@ -1189,8 +1211,14 @@ class _ActionLog:
         return getattr(self.agent, name)
 
     def decode_step(self, *args):
+        return self._timed(self.agent.decode_step, args)
+
+    def act(self, *args):  # a flat policy's step
+        return self._timed(self.agent.act, args)
+
+    def _timed(self, fn, args):
         self.t0 = time.perf_counter()
-        action = self.agent.decode_step(*args)
+        action = fn(*args)
         self.actions.append(action)
         return action
 
@@ -2395,6 +2423,358 @@ def phase_rollout_d4rl(card: str, run_dirs) -> dict:
     return launches
 
 
+# -- Relay Imitation Learning and CEM planning ----------------------------------------------
+
+# tests/test_torch_ril.py's visual config (float32) with a discrete-gripper
+# low level
+RIL_TINY = {
+    "_target_": "tacorl_tpu.modules.ril.RILModule", "lr": 1e-3, "action_dim": 7,
+    "high_level_policy_modalities": ["rgb_static"], "low_level_policy_modalities": ["rgb_static"],
+    "perceptual_encoder": {"networks": {"rgb_static": {
+        "_target_": "tacorl_tpu.networks.encoders.LMPVisionEncoder", "latent_dim": 8, "hidden_dim": 16,
+        "compute_dtype": None}}},
+    "goal_encoder": {"out_features": 8, "hidden_size": 16, "last_layer_activation": "Tanh"},
+    "high_level_policy": {"num_layers": 2, "hidden_dim": 16},
+    "low_level_policy": {"num_layers": 2, "hidden_dim": 16, "discrete_gripper": True},
+    "transforms": {"rgb_static": {"kind": "rgb", "size": [48, 48], "pad": 2}},
+}
+RIL_LAUNCHES_PER_STEP = 4  # rgb_static of each of the four leaves
+# the CEM of configs/evaluate.yaml's use_cem (modules/cem.py's defaults)
+CEM_ITERS, CEM_POP = 3, 64
+RIL_PLAN_DURATION, RIL_LOOKAHEAD = 8, 8  # experiment=ril_fake_state, BASELINE.md's oracle run
+VECTOR_ENV_KW = dict(image_hw=64, max_episode_steps=56, task_set="hard",
+                     modalities=["robot_obs", "scene_obs"], goal_modalities=["robot_obs", "scene_obs"])
+
+
+class _CemDraws:
+    """A rollout manager's draw source from one CPU generator: the CEM's
+    normals for a flat step or a replan (``width`` wide), and a decode
+    step's mixture uniforms."""
+
+    def __init__(self, width: int, a: int = 6, k: int = 4, seed: int = 0):
+        self.mixture = _CpuDraws(1, a, k, seed)
+        self.g, self.width = self.mixture.g, width
+
+    def __call__(self, call):
+        if call == "decode":
+            return self.mixture("decode")
+        return {"cem_eps": torch.randn((CEM_ITERS, CEM_POP, 1, self.width), generator=self.g)}
+
+
+def _ril_batch(b: int, hw: int, seed: int) -> dict:
+    rs = np.random.RandomState(seed)
+    batch = {k: {"rgb_static": rs.randint(0, 256, (b, hw, hw, 3), dtype=np.uint8)} for k in LEAVES}
+    actions = np.clip(rs.randn(b, 7), -1, 1).astype(np.float32)
+    actions[:, -1] = np.where(actions[:, -1] >= 0, 1.0, -1.0)
+    batch["low_level_action"] = actions
+    return batch
+
+
+def _episodes(agent, manager, env, resets) -> tuple:
+    """Episodes of one agent: outcomes and stacked actions."""
+    log = _ActionLog(agent)
+    outs = [manager.episode_rollout(log, env, r) for r in resets]
+    return outs, np.stack(log.actions)
+
+
+def phase_reference_ril() -> None:
+    """At tiny float32 configs, card against CPU from the same weights,
+    batch and draws: one RIL train and validation step (every metric within
+    rtol 1e-4); ``cem_optimize`` with and without a discrete gripper; RILAgent
+    and OracleSubgoalAgent episodes through RILRollout; and the CEM-refined
+    FlatPolicyAgent (cql_fake_state's widths) and TACORLAgent episodes
+    (actions within 1e-4, grippers and outcomes equal)."""
+    from tacorl_tpu_torch.evaluation.agents import OracleSubgoalAgent
+    from tacorl_tpu_torch.evaluation.rollout_manager import RILRollout
+    from tacorl_tpu_torch.modules.cem import cem_optimize
+
+    b, g = 4, torch.Generator().manual_seed(5)
+    batch = _ril_batch(b, 64, seed=5)
+    draws = {leaf: {"rgb_static": {"shifts": torch.randint(0, 5, (b, 2), generator=g),
+                                   "factors": sample_jitter_factors(b, g)}} for leaf in LEAVES}
+    metrics, modules = {}, {}
+    for device in ("cpu", "cuda"):
+        module = RILModule(RIL_TINY, device=device)
+        state = module.init_state(0)
+        if modules:
+            module.net.load_state_dict(modules["cpu"][0].net.state_dict())
+        modules[device] = (module, state)
+        val, _ = module.make_val_step()(state, batch)
+        saved = {k: v.clone() for k, v in module.net.state_dict().items()}
+        _, train = module.make_train_step()(state, batch, draws=_to_device(draws, device))
+        module.net.load_state_dict(saved)  # the agents below act with the initial weights
+        metrics[device] = {**{f"train/{k}": float(v) for k, v in train.items()},
+                           **{f"val/{k}": float(v) for k, v in val.items()}}
+    worst = 0.0
+    for key, c in metrics["cpu"].items():
+        a = metrics["cuda"][key]
+        _check(np.isfinite(a) and abs(a - c) <= 1e-4 * abs(c) + 1e-6, f"reference_ril {key}: cuda {a} vs cpu {c}")
+        worst = max(worst, abs(a - c) / max(abs(c), 1e-6))
+
+    # cem_optimize on a fixed random critic over a tiled state embedding
+    cem_err = {}
+    for gripper in (False, True):
+        emb, init = torch.randn(3, 5, generator=g), torch.rand(3, 7, generator=g) * 2 - 1
+        w1, w2 = torch.randn(12, 32, generator=g), torch.randn(32, 1, generator=g)
+        eps = torch.randn(CEM_ITERS, CEM_POP, 3, 7, generator=g)
+        out = {}
+        for device in ("cpu", "cuda"):
+            e, a1, a2 = emb.to(device), w1.to(device), w2.to(device)
+
+            def q(x):
+                return torch.tanh(torch.cat([e.repeat(x.shape[0] // 3, 1), x], -1) @ a1) @ a2
+
+            out[device] = cem_optimize(q, init.to(device), CEM_ITERS, CEM_POP, 8, 0.3, gripper,
+                                       eps=eps.to(device)).cpu()
+        cem_err[gripper] = float((out["cuda"] - out["cpu"]).abs().max())
+        _check(cem_err[gripper] <= ACTION_ATOL, f"reference_ril: cem_optimize (gripper {gripper}) {cem_err}")
+
+    resets = ({"task_info": {"task": "open_drawer", "index": 0}},
+              {"task_info": {"task": "lift_block", "index": 2}})
+    env_kw = dict(image_hw=64, max_episode_steps=20, task_set="hard", seed=0)
+    runs = {}
+    for device in ("cpu", "cuda"):
+        module, state = modules[device]
+        runs[("ril", device)] = _episodes(
+            make_agent(module, state)[0], RILRollout(plan_duration=4), FakeCalvinEnv(**env_kw), resets)
+        # the oracle rolls the expert ahead on a copy of the env it scores on
+        env = FakeCalvinEnv(**env_kw)
+        runs[("oracle", device)] = _episodes(
+            OracleSubgoalAgent(module, state, env, lookahead=4), RILRollout(plan_duration=4), env, resets)
+    with tempfile.TemporaryDirectory() as tmp:
+        _save_lmp(_tiny_cfg(), tmp, "cpu")
+        flat_cfg = _flat_module_cfg(FLAT_CASES["cql_fake_state"])
+        weights = {}
+        for device in ("cpu", "cuda"):
+            for name, module in (("cql_cem", CQLModule(flat_cfg, device=device)),
+                                 ("tacorl_cem", TACORLModule(_tiny_tacorl_cfg(tmp), device=device))):
+                state = module.init_state(0)
+                weights.setdefault(name, {k: v.clone() for k, v in module.net.state_dict().items()})
+                module.net.load_state_dict(weights[name])
+                agent, manager_cls = make_agent(module, state, use_cem=True)
+                draws = _CemDraws(module.action_dim)
+                if name == "cql_cem":
+                    manager = manager_cls(draw_source=draws)
+                    env = FakeCalvinEnv(**dict(VECTOR_ENV_KW, max_episode_steps=20))
+                else:
+                    manager, env = manager_cls(plan_duration=5, draw_source=draws), FakeCalvinEnv(**env_kw)
+                runs[(name, device)] = _episodes(agent, manager, env, resets)
+    errs = {}
+    for name in ("ril", "oracle", "cql_cem", "tacorl_cem"):
+        (outs_cpu, acts_cpu), (outs_card, acts_card) = runs[(name, "cpu")], runs[(name, "cuda")]
+        _check(acts_card.shape == acts_cpu.shape, f"reference_ril {name}: {acts_card.shape} vs {acts_cpu.shape}")
+        errs[name] = float(np.abs(acts_card[:, :-1] - acts_cpu[:, :-1]).max())
+        _check(errs[name] <= ACTION_ATOL, f"reference_ril {name}: max action error {errs[name]}")
+        _check(np.array_equal(acts_card[:, -1], acts_cpu[:, -1]), f"reference_ril {name}: grippers differ")
+        _check([(o["episode_length"], o["success"]) for o in outs_card]
+               == [(o["episode_length"], o["success"]) for o in outs_cpu], f"reference_ril {name}: outcomes")
+    print(
+        f"[reference_ril] tiny float32 RIL train + val step, cuda vs cpu, same weights, batch and per-leaf "
+        f"draws: {len(metrics['cpu'])} metrics, total_loss {metrics['cuda']['train/total_loss']:.6f} vs "
+        f"{metrics['cpu']['train/total_loss']:.6f}, largest relative difference {worst:.3g} (rtol 1e-4) | "
+        f"cem_optimize ({CEM_ITERS} x {CEM_POP}) max abs err {cem_err[False]:.3g}, with a gripper "
+        f"{cem_err[True]:.3g} | episodes, max action error (atol {ACTION_ATOL}): "
+        + ", ".join(f"{n} {len(runs[(n, 'cpu')][1])} actions {e:.3g}" for n, e in errs.items())
+        + "; grippers and outcomes equal",
+        flush=True,
+    )
+
+
+def _ril_kernel_check(trainer) -> float:
+    """jitter_normalize against its plain version on one of the run's
+    batches at the main path's shape: the ``obs`` leaf resized and shifted
+    to (64, 3, 128, 128) bf16, factors from the transform's ranges."""
+    cfg = compose(CONFIG_DIR, "train", ["experiment=ril"])["transforms"]["rgb_static"]
+    batch = next(iter(trainer.datamodule.train_loader()))
+    frames = torch.as_tensor(batch["obs"]["rgb_static"]).cuda().movedim(-1, -3).contiguous()
+    g = torch.Generator(device="cuda").manual_seed(11)
+    n, pad = frames.shape[0], int(cfg["pad"])
+    shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device="cuda")
+    x = image_aug.resize_shift(frames, shifts, tuple(cfg["size"]), pad, dtype=torch.bfloat16).contiguous()
+    factors = sample_jitter_factors(n, g, brightness=cfg["brightness"], contrast=cfg["contrast"],
+                                    hue=cfg["hue"], prob=cfg["jitter_prob"])
+    _check(tuple(x.shape) == (64, 3, 128, 128) and x.dtype == torch.bfloat16, f"train_ril: kernel input {x.shape}")
+    return _compare(jitter_normalize(x, factors), jitter_normalize_reference(x, factors), 8e-3,
+                    "train_ril: jitter_normalize vs plain at (64, 3, 128, 128) bf16")
+
+
+def phase_train_ril(card: str, train_data: str, flat_data: str, flat_pct: float, root: str) -> dict:
+    """experiment=ril at its composed widths through train.main on phase
+    16's packed 200x200 set, 2 epochs of 12 steps, with the measurements of
+    phase 16 and 4 jitter_normalize launches a step; the kernel against its
+    plain version on the run's frames. Then experiment=ril_fake_state at its
+    full width on phase 21's set with the rollout monitor, 0 launches, then
+    evaluate epoch=best. Returns the launches of each run."""
+    from tacorl_tpu_torch import evaluate, train
+
+    n = sum(int(e) - int(s) for s, e in load_ep_start_end_ids(f"{train_data}/training", True))
+    pct = (12 * 64 + 8) / n  # 12 batches of 64 an epoch
+    launches = {}
+    probe = _TrainProbe()
+    jitter_normalize.launches = shift_jitter_normalize.launches = 0
+    t0 = time.perf_counter()
+    trainer = train.main(_train_args("ril", train_data, f"{root}/ril", TRAIN_STEPS,
+                                     f"datamodule.train_percentage={pct}"), callbacks=[probe])
+    wall = time.perf_counter() - t0
+    launches["ril"] = {"jitter_normalize": jitter_normalize.launches,
+                       "shift_jitter_normalize": shift_jitter_normalize.launches}
+    _check(type(trainer.callbacks[0]).__name__ == "IncreaseHorizonLinear", "train_ril: callbacks")
+    _check(trainer.global_step == TRAIN_STEPS and probe.epoch_steps == [12, 12], f"train_ril: {probe.epoch_steps}")
+    _check(launches["ril"] == {"jitter_normalize": RIL_LAUNCHES_PER_STEP * TRAIN_STEPS, "shift_jitter_normalize": 0},
+           f"train_ril: launches {launches['ril']}")
+    _report_trainer("train_ril", card, trainer, probe, None, RIL_LAUNCHES_PER_STEP)
+    err = _ril_kernel_check(trainer)
+    rows = _metrics_rows(f"{root}/ril")
+    print(
+        f"[train_ril] experiment=ril: train.main took {wall:.1f} s (2 epochs, 2 val passes, 2 saves), "
+        f"{RIL_LAUNCHES_PER_STEP} image leaves a step, launches {launches['ril']} counted in "
+        f"{TRAIN_STEPS} steps | jitter_normalize vs plain on the run's frames at (64, 3, 128, 128) bf16: "
+        f"max abs err {err:.3g} (atol 8e-3) | final high_level_loss "
+        f"{[r['train/high_level_loss'] for r in rows if 'train/high_level_loss' in r][-1]:.4f} | {card}",
+        flush=True,
+    )
+    del trainer
+    torch.cuda.empty_cache()
+
+    probe = _TrainProbe()
+    jitter_normalize.launches = shift_jitter_normalize.launches = 0
+    t0 = time.perf_counter()
+    run_dir = f"{root}/ril_state"
+    trainer = train.main(
+        _train_args("ril_fake_state", flat_data, run_dir, TRAIN_STEPS, f"datamodule.train_percentage={flat_pct}",
+                    *FLAT_ARGS),
+        callbacks=[probe],
+    )
+    wall = time.perf_counter() - t0
+    launches["ril_fake_state"] = {"jitter_normalize": jitter_normalize.launches,
+                                  "shift_jitter_normalize": shift_jitter_normalize.launches}
+    _check(launches["ril_fake_state"] == {"jitter_normalize": 0, "shift_jitter_normalize": 0},
+           f"train_ril_state: launches {launches['ril_fake_state']}")
+    _check(trainer.state.net.perceptual_encoder.networks.keys() == set(), "train_ril_state: encoders built")
+    _report_trainer("train_ril_state", card, trainer, probe, None, 0)
+    accs = [r["val_accuracy"] for r in _metrics_rows(run_dir) if "val_accuracy" in r]
+    _check(len(accs) == 2, f"train_ril_state: val_accuracy {accs}")
+    best = trainer.ckpt.best_step()
+    del trainer
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        results = evaluate.main([
+            f"module_path={run_dir}", "epoch=best", f"data_dir={flat_data}/validation", "env.image_hw=64",
+            "env.max_episode_steps=56", "env.task_set=hard", "env.modalities=[robot_obs,scene_obs]",
+            "env.goal_modalities=[robot_obs,scene_obs]", "min_seq_len=1", "max_seq_len=64",
+            "max_rollouts=2", f"plan_duration={RIL_PLAN_DURATION}", f"filename={tmp}/best.json",
+        ])
+        eval_s = time.perf_counter() - t1
+    _check(bool(results) and all(np.isfinite(r["accuracy"]) for r in results.values()),
+           f"train_ril_state: evaluate results {results}")
+    print(
+        f"[train_ril_state] experiment=ril_fake_state: train.main took {wall:.1f} s | val_accuracy {accs}, "
+        f"best step {best} | evaluate epoch=best in {eval_s:.1f} s: "
+        + ", ".join(f"{t} {r['accuracy']:.2f}" for t, r in results.items())
+        + f" | launches {launches['ril_fake_state']} | {card}",
+        flush=True,
+    )
+    return launches
+
+
+def _rollout_line(name, make, manager, env_kw, data_dir) -> str:
+    """evaluate_all_tasks (ROLLOUTS_PER_TASK a task) with the agent that
+    ``make(env)`` builds for the scored env, then its steps and replans
+    timed and profiled."""
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = SingleTaskRolloutGenerator(data_dir=data_dir, start_end_tasks=f"{data_dir}/start_end_tasks.json",
+                                     min_seq_len=1, max_seq_len=64)
+    scored = FakeCalvinEnv(**env_kw)
+    agent = make(scored)
+    log = _ActionLog(agent)
+    env = _TimedEnv(scored, log)
+    evaluation = EvaluationManager(agent=log, env=env, rollout_manager=manager, single_task_generator=gen)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        results = evaluation.evaluate_all_tasks(f"{tmp}/all_tasks.json", ROLLOUTS_PER_TASK)
+        wall = time.perf_counter() - t0
+    steps = len(env.step_ms)
+    acts = np.stack(log.actions)
+    _check(bool(results) and steps == sum(r["avg_episode_length"] * r["num_rollouts"] for r in results.values())
+           and acts.shape == (steps, 7) and bool(np.isfinite(acts).all()), f"rollout_ril {name}: {acts.shape}")
+    obs = env.env.reset(**gen.get_reset_info(next(iter(results)), 0))
+    g = torch.Generator(device="cuda").manual_seed(3)
+    flat = not hasattr(agent, "propose_plan")
+    plan = None if flat else agent.propose_plan(obs, None, g)
+
+    def step():
+        if flat:
+            return agent.act(obs, None, g)
+        return agent.decode_step(obs, plan, None, g)
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            step()
+        torch.cuda.synchronize()
+    per_step, copies, device_ms = _kernel_counts(prof.key_averages(), 20)
+    step_ms = statistics.median(env.step_ms)
+    line = (f"{name} ({type(agent).__name__} + {type(manager).__name__}): {env.episodes} episodes, {steps} env "
+            f"steps in {wall:.3f} s ({steps / wall:.1f} env steps/s), accuracy "
+            f"{sum(r['accuracy'] * r['num_rollouts'] for r in results.values()) / env.episodes:.3f}, "
+            f"{'step' if flat else 'decode step'} (agent + env.step) median {step_ms:.3f} ms, "
+            f"{per_step:.1f} kernels and {copies:.1f} copies a step, device {device_ms:.3f} ms a step "
+            f"(busy {device_ms / step_ms:.1%})")
+    if not flat:
+        replan_ms = []
+        for _ in range(REPLANS):
+            t1 = time.perf_counter()
+            agent.propose_plan(obs, None, g)
+            torch.cuda.synchronize()
+            replan_ms.append((time.perf_counter() - t1) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                agent.propose_plan(obs, None, g)
+            torch.cuda.synchronize()
+        per_replan, _, replan_dev = _kernel_counts(prof.key_averages(), 5)
+        line += (f", replan (propose + sync) median {statistics.median(replan_ms[2:]):.3f} ms, "
+                 f"{per_replan:.1f} kernels and {replan_dev:.3f} device ms a replan")
+    return line
+
+
+def phase_rollout_ril(card: str, flat_data: str, root: str) -> dict:
+    """The trained ril_fake_state module (phase 27) with its learned high
+    level and with the oracle (lookahead 8) through RILRollout
+    (plan_duration 8) on the ril_fake_state env; phase 22's cql_fake_state
+    module and phase 18's TACO-RL module without and with CEM (3 x 64, 8
+    elites), each through evaluate_all_tasks on the flagship-recipe
+    validation set: env steps/s, ms per decode step and replan, kernels a
+    step; 0 launches of either kernel."""
+    from tacorl_tpu_torch.evaluation.agents import OracleSubgoalAgent
+    from tacorl_tpu_torch.evaluation.rollout_manager import RILRollout
+
+    image_kw = dict(image_hw=ROLLOUT_HW, max_episode_steps=ROLLOUT_STEPS, task_set="hard")
+    lines = []
+    jitter_normalize.launches = shift_jitter_normalize.launches = 0
+    ril, ril_state = load_module_from_checkpoint(f"{root}/ril_state", device="cuda")
+    for name, make in (("ril", lambda env: make_agent(ril, ril_state)[0]),
+                       ("ril_oracle", lambda env: OracleSubgoalAgent(ril, ril_state, env, lookahead=RIL_LOOKAHEAD))):
+        lines.append(_rollout_line(name, make, RILRollout(plan_duration=RIL_PLAN_DURATION), VECTOR_ENV_KW,
+                                   f"{flat_data}/validation"))
+    for run, env_kw in (("cql_state", VECTOR_ENV_KW), ("tacorl", image_kw)):
+        module, state = load_module_from_checkpoint(f"{root}/{run}", device="cuda")
+        for use_cem in (False, True):
+            agent, manager_cls = make_agent(module, state, use_cem=use_cem)
+            manager = manager_cls() if manager_cls.__name__ == "RLRollout" else manager_cls(plan_duration=PLAN_DURATION)
+            lines.append(_rollout_line(f"{module.name}{'_cem' if use_cem else ''}", lambda env, a=agent: a,
+                                       manager, env_kw, f"{flat_data}/validation"))
+        del module, state
+        torch.cuda.empty_cache()
+    launches = {"jitter_normalize": jitter_normalize.launches, "shift_jitter_normalize": shift_jitter_normalize.launches}
+    _check(launches == {"jitter_normalize": 0, "shift_jitter_normalize": 0}, f"rollout_ril: launches {launches}")
+    for line in lines:
+        print(f"[rollout_ril] {line}", flush=True)
+    print(f"[rollout_ril] {ROLLOUTS_PER_TASK} rollouts a task; kernel launches {launches} | {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2424,22 +2804,25 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     phase_reference_train()
+    # the runs of phases 16-22 stay until phase 28 scores them
     with tempfile.TemporaryDirectory() as tmp:
         train_data = _train_data(tmp)
         launches_train = phase_train(card, train_data, f"{tmp}/lmp", step_ms)
         phase_train_resume(card, train_data, f"{tmp}/lmp")
         launches_train_tacorl = phase_train_tacorl(card, train_data, f"{tmp}/lmp", f"{tmp}/tacorl", tacorl_ms)
-    with tempfile.TemporaryDirectory() as tmp:
-        phase_train_callback(card, tmp)
-    phase_reference_cql()
-    with tempfile.TemporaryDirectory() as tmp:
+        with tempfile.TemporaryDirectory() as tmp2:
+            phase_train_callback(card, tmp2)
+        phase_reference_cql()
         flat_data, pct = _flat_train_data(tmp)
         launches_cql = phase_train_cql(card, flat_data, pct, f"{tmp}/cql")
         launches_cql_state = phase_train_cql_state(card, flat_data, pct, f"{tmp}/cql_state")
-    phase_reference_d4rl()
-    with tempfile.TemporaryDirectory() as tmp:
-        launches_d4rl, d4rl_runs = phase_train_d4rl(card, tmp)
-        rollout_d4rl = phase_rollout_d4rl(card, d4rl_runs)
+        phase_reference_d4rl()
+        with tempfile.TemporaryDirectory() as tmp2:
+            launches_d4rl, d4rl_runs = phase_train_d4rl(card, tmp2)
+            rollout_d4rl = phase_rollout_d4rl(card, d4rl_runs)
+        phase_reference_ril()
+        launches_ril = phase_train_ril(card, train_data, flat_data, pct, tmp)
+        rollout_ril = phase_rollout_ril(card, flat_data, tmp)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -2447,12 +2830,18 @@ def main() -> int:
         "train": launches_train, "train_tacorl": launches_train_tacorl,
         "train_cql": launches_cql, "train_cql_state": launches_cql_state,
         "train_d4rl": launches_d4rl["jitter_normalize"], "rollout_d4rl": rollout_d4rl["jitter_normalize"],
+        "train_ril": launches_ril["ril"]["jitter_normalize"],
+        "train_ril_state": launches_ril["ril_fake_state"]["jitter_normalize"],
+        "rollout_ril": rollout_ril["jitter_normalize"],
     }
     shift["launches_by_path"] = {
         "augment": shift["launches"], "rollout": rollout["shift_jitter_normalize"],
         "rollout_tacorl": rollout_tacorl["shift_jitter_normalize"],
         "train_d4rl": launches_d4rl["shift_jitter_normalize"],
         "rollout_d4rl": rollout_d4rl["shift_jitter_normalize"],
+        "train_ril": launches_ril["ril"]["shift_jitter_normalize"],
+        "train_ril_state": launches_ril["ril_fake_state"]["shift_jitter_normalize"],
+        "rollout_ril": rollout_ril["shift_jitter_normalize"],
     }
     print(json.dumps({"kernels": [kernel, shift]}))
     print(card)

@@ -32,12 +32,12 @@ from tacorl_tpu_torch.utils import resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
 
-# module family -> (agent class, rollout manager); RIL waits for ROADMAP
-# Queue 1, item 11
+# module family -> (agent class, rollout manager)
 AGENTS = {
     "cql": ("tacorl_tpu_torch.evaluation.agents.FlatPolicyAgent", "RLRollout"),
     "tacorl": ("tacorl_tpu_torch.evaluation.agents.TACORLAgent", "TACORLRollout"),
     "play_lmp": ("tacorl_tpu_torch.evaluation.agents.LatentPlanAgent", "LatentPlanRollout"),
+    "ril": ("tacorl_tpu_torch.evaluation.agents.RILAgent", "RILRollout"),
 }
 
 

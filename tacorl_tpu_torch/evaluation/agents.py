@@ -11,17 +11,21 @@ only host wait of the loop.
 
 Randomness: every call takes ``draws`` (explicit random inputs, as the
 module functions take them) and the rollout manager's ``generator``, from
-which whatever is missing is drawn.
+which whatever is missing is drawn. With CEM refinement (``use_cem``) the
+flat and TACO-RL agents take ``draws["cem_eps"]``, the CEM's standard
+normals (``modules/cem.py``).
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
 import torch.nn as nn
 
+from tacorl_tpu_torch.modules.cem import cem_optimize
 from tacorl_tpu_torch.utils import resolve_device
 
 __all__ = [
@@ -30,6 +34,8 @@ __all__ = [
     "TACORLAgent",
     "LatentPlanD4RLAgent",
     "TACORLD4RLAgent",
+    "RILAgent",
+    "OracleSubgoalAgent",
     "ScriptedExpertAgent",
     "make_agent",
     "make_d4rl_agent",
@@ -48,15 +54,8 @@ def make_agent(module, state, use_cem: bool = False, cem_cfg: dict = None):
     if name == "play_lmp":
         return LatentPlanAgent(module, state), rm.LatentPlanRollout
     if name == "ril":
-        raise NotImplementedError("RILAgent is not ported yet (ROADMAP Queue 1, item 11)")
+        return RILAgent(module, state), rm.RILRollout
     raise ValueError(f"no agent mapping for module {name!r}")
-
-
-def _no_cem(use_cem: bool) -> None:
-    if use_cem:
-        raise NotImplementedError(
-            "CEM refinement (modules/cem.py) is not ported yet (ROADMAP Queue 1, item 13)"
-        )
 
 
 class _ModuleAgent:
@@ -98,18 +97,55 @@ class _ModuleAgent:
         return action[0].cpu().numpy()
 
 
-class FlatPolicyAgent(_ModuleAgent):
-    """Deterministic flat policy (reference RLRollout, rollout_manager.py:
-    81-180). CEM refinement waits for ROADMAP item 13."""
+class _CEMAgent(_ModuleAgent):
+    """Optional CEM refinement of a deterministic output (an action, or a
+    latent plan) against min(Q1, Q2) of the module's critics
+    (``modules/cem.py``); ``cem_cfg`` holds its ``num_iterations``,
+    ``population_size``, ``num_elites`` and ``init_std``."""
 
     def __init__(self, module, state, use_cem: bool = False, cem_cfg: dict = None):
-        _no_cem(use_cem)
         super().__init__(module, state)
+        self.use_cem = use_cem
+        self.cem_cfg = dict(cem_cfg or {})
+
+    def _refine(self, batched, initial, draws, generator, discrete_gripper=False):
+        """The CEM mean seeded by ``initial`` (B, A), each critic's
+        embedding of the observation computed once and tiled over the
+        population."""
+        net = self.net
+        obs_t = self.module.transforms(batched, train=False)
+        emb1 = net.q1.get_emb_representation(obs_t)
+        emb2 = net.q2.get_emb_representation(obs_t)
+
+        def q_min(actions):
+            reps = actions.shape[0] // emb1.shape[0]
+            q1 = net.q1.critic(emb1.repeat(reps, 1), actions)
+            q2 = net.q2.critic(emb2.repeat(reps, 1), actions)
+            return torch.minimum(q1, q2)
+
+        return cem_optimize(
+            q_min, initial, discrete_gripper=discrete_gripper,
+            eps=(draws or {}).get("cem_eps"), generator=generator, **self.cem_cfg,
+        )
+
+
+class FlatPolicyAgent(_CEMAgent):
+    """Deterministic flat policy (reference RLRollout, rollout_manager.py:
+    81-180), optionally CEM-refined against min(Q1, Q2); a discrete gripper
+    is snapped to +-1 in every population."""
+
+    def __init__(self, module, state, use_cem: bool = False, cem_cfg: dict = None):
+        super().__init__(module, state, use_cem, cem_cfg)
         self._policy = module.make_policy_fn(deterministic=True)
 
     @torch.inference_mode()
     def act(self, obs: Dict, draws=None, generator=None) -> np.ndarray:
-        action = self._policy(self.net, self._batched(obs), self._draws(draws), generator)
+        batched, draws = self._batched(obs), self._draws(draws)
+        action = self._policy(self.net, batched, draws, generator)
+        if self.use_cem:
+            action = self._refine(
+                batched, action, draws, generator, self.net.actor.actor.discrete_gripper
+            )
         return self._action(action)
 
 
@@ -137,19 +173,22 @@ class LatentPlanAgent(_ModuleAgent):
         return self._action(action)
 
 
-class TACORLAgent(_ModuleAgent):
+class TACORLAgent(_CEMAgent):
     """TACO-RL rollout policy (rollout_manager.py:310-431): the RL actor
-    emits a deterministic latent plan, the LMP decoder streams actions. CEM
-    refinement waits for ROADMAP item 13."""
+    emits a deterministic latent plan, optionally CEM-refined against the
+    latent-plan critics (clipped to [-1, 1], as the JAX CEM clips it); the
+    LMP decoder streams actions."""
 
     def __init__(self, module, state, use_cem: bool = False, cem_cfg: dict = None):
-        _no_cem(use_cem)
-        super().__init__(module, state)
+        super().__init__(module, state, use_cem, cem_cfg)
         self._propose, self._decode = module.make_plan_and_decode_fns()
 
     @torch.inference_mode()
     def propose_plan(self, obs: Dict, draws=None, generator=None) -> torch.Tensor:
-        plan = self._propose(self.net, self._batched(obs), self._draws(draws), generator)
+        batched, draws = self._batched(obs), self._draws(draws)
+        plan = self._propose(self.net, batched, draws, generator)
+        if self.use_cem:
+            plan = self._refine(batched, plan, draws, generator)
         self.carry = None
         return plan
 
@@ -223,6 +262,55 @@ def make_d4rl_agent(module, state, plan_duration: int = 15, draw_source=None):
     if module.name == "tacorl_d4rl":
         return TACORLD4RLAgent(module, state), rm.TACORLRolloutD4RL(plan_duration, draw_source=draw_source)
     return FlatPolicyAgent(module, state), rm.RLRolloutD4RL(draw_source=draw_source)
+
+
+class RILAgent(_ModuleAgent):
+    """Relay-imitation-learning rollout policy (rollout_manager.py:
+    434-557): the high level emits a deterministic latent subgoal at each
+    replan, the low level acts on it at every step. Neither draws."""
+
+    def __init__(self, module, state):
+        super().__init__(module, state)
+        self._high, self._low = module.make_policy_fns()
+
+    @torch.inference_mode()
+    def propose_plan(self, obs: Dict, draws=None, generator=None) -> torch.Tensor:
+        return self._high(
+            self.net, self._batched(obs["observation"]), self._batched(obs["goal"])
+        )
+
+    @torch.inference_mode()
+    def decode_step(self, obs: Dict, subgoal, draws=None, generator=None) -> np.ndarray:
+        return self._action(self._low(self.net, self._batched(obs["observation"]), subgoal))
+
+
+class OracleSubgoalAgent(RILAgent):
+    """RIL low-level probe: a ground-truth high level for the hierarchical
+    rollout, which isolates the low level from the learned high level.
+
+    At every replan a deep copy of the live env (its random state copied,
+    not shared) is rolled ``lookahead`` steps forward with the scripted
+    expert, stopping early on success, and the reached state is embedded
+    through the module's own goal path (``RILNet.encode_goal``, the
+    embedding training used for ``low_level_goal``). The live env is left
+    as it was. Since the oracle replans from the policy's current state, its
+    subgoals stay reachable after the low level drifts."""
+
+    def __init__(self, module, state, env, lookahead: int = 12, gain: float = 1.0):
+        super().__init__(module, state)
+        self.env = env
+        self.lookahead = lookahead
+        self.gain = gain
+
+    @torch.inference_mode()
+    def propose_plan(self, obs: Dict, draws=None, generator=None) -> torch.Tensor:
+        sim = copy.deepcopy(self.env)
+        for _ in range(self.lookahead):
+            if sim._success():
+                break
+            sim.step(sim.expert_action(gain=self.gain))
+        goal = self._batched(sim._obs_dict(self.module.ll_mods))
+        return self.net.encode_goal(self.module.transforms(goal, train=False))
 
 
 class ScriptedExpertAgent:

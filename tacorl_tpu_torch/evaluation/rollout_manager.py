@@ -8,7 +8,6 @@ Four manager shapes, matching the reference:
                          plan_duration steps, replan
   * TACORLRollout      — RL actor emits the plan, decoder streams actions
   * RILRollout         — high-level subgoal, low-level goal-conditioned policy
-                         (a class shell: its agent waits for ROADMAP item 11)
 
 All managers return {"episode_length", "episode_return", "success"
 [, "successful_tasks"]}.
@@ -187,5 +186,5 @@ class TACORLRollout(_PlanDecodeRollout):
 class RILRollout(_PlanDecodeRollout):
     """Relay-IL rollout (rollout_manager.py:434-557): the subgoal renews on
     the plan_duration cadence; the high level is deterministic and the low
-    level a stateless per-step policy. Its agent (RILAgent) waits for ROADMAP
-    Queue 1, item 11."""
+    level a stateless per-step policy, with no carry to clear (see
+    RILAgent and OracleSubgoalAgent)."""

@@ -8,7 +8,8 @@ for the CQL and TACO-RL params and target critics (the inverses of
 ``assemble_cql`` and ``assemble_tacorl``);
 ``play_lmp_d4rl_state_dict_from_jax`` and ``tacorl_d4rl_state_dict_from_jax``
 do it for the D4RL branch's state-based modules (no encoders; the
-continuous decoder has no ``gripper_fc``); the per-network functions do it
+continuous decoder has no ``gripper_fc``); ``ril_state_dict_from_jax`` for
+the RIL net (the inverse of ``assemble_ril``); the per-network functions do it
 for one network's subtree. The keys are
 the reference TACO-RL layout, so the same state_dict is what a released
 reference checkpoint holds. Layouts:
@@ -49,6 +50,7 @@ __all__ = [
     "tacorl_state_dict_from_jax",
     "play_lmp_d4rl_state_dict_from_jax",
     "tacorl_d4rl_state_dict_from_jax",
+    "ril_state_dict_from_jax",
 ]
 
 StateDict = Dict[str, torch.Tensor]
@@ -322,4 +324,21 @@ def tacorl_d4rl_state_dict_from_jax(params: Mapping[str, Any], aux: Mapping[str,
     sd = cql_state_dict_from_jax(params, aux, modalities=())
     sd.update(_prefixed("plan_recognition.", plan_recognition_state_dict(params["plan_recognition"])))
     sd.update(_prefixed("action_decoder.", action_decoder_state_dict(params["action_decoder"])))
+    return sd
+
+
+def ril_state_dict_from_jax(
+    params: Mapping[str, Any], image_modalities: Sequence[str] = ("rgb_static",)
+) -> StateDict:
+    """JAX ``RILNet`` params -> port ``RILNet`` state_dict:
+    ``perceptual_encoder.*``, ``goal_encoder.*``, ``high_level_policy.policy.*``
+    and ``low_level_policy.policy.*`` (the inverse of ``assemble_ril``).
+    ``image_modalities`` as for ``play_lmp_state_dict_from_jax``; a net over
+    vector modalities alone has no encoder parameters."""
+    sd = _prefixed(
+        "perceptual_encoder.", _late_fusion(params.get("perceptual_encoder", {}), image_modalities)
+    )
+    sd.update(_prefixed("goal_encoder.", goal_encoder_state_dict(params["goal_encoder"])))
+    for level in ("high_level_policy", "low_level_policy"):
+        sd.update(_prefixed(f"{level}.policy.", mlp_policy_state_dict(params[level]["policy"])))
     return sd

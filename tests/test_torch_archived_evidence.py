@@ -6,7 +6,9 @@ the goal-horizon series, the offline score of the best checkpoint over all
 160 validation spans (40 a task), and the card named in its README. Also
 the D4RL hierarchy's H100 run (``results/torch_r7_d4rl/``): its two
 recipes, each stage's best ``val_accuracy``, stage 2's last 10
-evaluations, the three 100-rollout scores and the walls."""
+evaluations, the three 100-rollout scores and the walls. And the RIL run
+(``results/torch_r8_ril/``): its recipe, the in-training evaluations, the
+oracle and learned 48-rollout scores and the walls."""
 
 import json
 from pathlib import Path
@@ -138,4 +140,60 @@ def test_d4rl_readme_names_the_card_and_the_walls():
     walls = dict(line.split() for line in (D4RL / "walls.txt").read_text().splitlines())
     assert set(walls) == {"make_data", "train_lmp", "train_tacorl", "eval_lmp_best", "eval_tacorl_best",
                           "eval_tacorl_final"}
+    assert all(f"{float(v):.1f}" in readme for v in walls.values())
+
+
+# -- Relay Imitation Learning (results/torch_r8_ril/, made by its run.sh) ---------------------
+
+RIL = Path(__file__).resolve().parent.parent / "results" / "torch_r8_ril"
+RIL_EVALS = [(857, 0.0), (4285, 0.0), (7713, 0.0), (11141, 1 / 6), (14569, 0.5)]  # every 4 epochs
+RIL_SCORES = {  # 12 rollouts a task at step 16,000; the archived JAX run: 0.875 / 0.354
+    "ril_oracle": ({"turn_on_led": 8 / 12, "open_drawer": 1.0, "lift_block": 10 / 12,
+                    "move_slider_left": 1.0}, 0.875),
+    "ril_learned": ({"turn_on_led": 1 / 12, "open_drawer": 3 / 12, "lift_block": 4 / 12,
+                     "move_slider_left": 7 / 12}, 0.3125),
+}
+
+
+def test_the_ril_run_is_the_archived_recipe():
+    cfg = json.loads((RIL / "config.json").read_text())
+    assert cfg["experiment_name"] == "ril_fake_state" and cfg["seed"] == 42
+    assert cfg["trainer"]["max_steps"] == 16000 and cfg["trainer"]["steps_per_call"] == 1
+    assert cfg["datamodule"]["batch_size"] == 32 and cfg["datamodule"]["val_percentage"] == 1.0
+    ds = cfg["datamodule"]["dataset"]
+    assert (ds["max_low_level_window"], ds["max_high_level_window"]) == (8, 80)
+    low = cfg["module"]["low_level_policy"]
+    assert (low["num_layers"], low["hidden_dim"], low["discrete_gripper"]) == (3, 512, True)
+    assert cfg["module"]["goal_encoder"] == {"out_features": 64, "hidden_size": 256,
+                                             "last_layer_activation": "Tanh"}
+    assert cfg["callbacks"]["rollout"]["every_n_epochs"] == 4
+    assert "device" not in cfg
+
+
+def test_ril_in_training_evaluations():
+    rows = [json.loads(line) for line in (RIL / "metrics.jsonl").read_text().splitlines()]
+    evals = [(r["step"], r["val_accuracy"]) for r in rows if "val_accuracy" in r]
+    assert evals == pytest.approx(RIL_EVALS)
+    assert max(a for _, a in evals) == 0.5  # the archived run's best: 0.556 at step 14,552
+    high = [r["validation/high_level_loss"] for r in rows if "validation/high_level_loss" in r]
+    assert len(high) == 19 and max(high) < -100  # 18 epochs of 857 steps and one of 574
+
+
+@pytest.mark.parametrize("name", list(RIL_SCORES))
+def test_ril_scores_over_48_rollouts(name):
+    per_task, overall_want = RIL_SCORES[name]
+    results = json.loads((RIL / f"{name}.json").read_text())
+    assert {t: v["accuracy"] for t, v in results.items()} == pytest.approx(per_task)
+    assert all(v["num_rollouts"] == 12 for v in results.values())
+    overall = sum(v["accuracy"] * v["num_rollouts"] for v in results.values()) / 48
+    assert overall == pytest.approx(overall_want, abs=1e-9)
+    # the JAX round's bar: oracle subgoals >= 0.8, the learned hierarchy above 0
+    assert overall >= 0.8 if name == "ril_oracle" else overall > 0
+
+
+def test_ril_readme_names_the_card_and_the_walls():
+    readme = (RIL / "README.md").read_text()
+    assert CARD in readme and (RIL / "card.txt").read_text().strip() == CARD
+    walls = dict(line.split() for line in (RIL / "walls.txt").read_text().splitlines())
+    assert set(walls) == {"make_flagship_data", "train", "oracle", "learned"}
     assert all(f"{float(v):.1f}" in readme for v in walls.values())

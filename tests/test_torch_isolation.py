@@ -89,6 +89,10 @@ def probe():
         "tacorl_tpu_torch.modules.tacorl_d4rl",
         "tacorl_tpu_torch.evaluation.rollout_manager_d4rl",
         "tacorl_tpu_torch.evaluate_d4rl",
+        "tacorl_tpu_torch.data.ril_dataset",
+        "tacorl_tpu_torch.modules.ril",
+        "tacorl_tpu_torch.modules.cem",
+        "tacorl_tpu_torch.evaluate_ril_oracle",
     ],
 )
 def test_probe_imported_every_module(probe, name):
@@ -123,6 +127,14 @@ def _d4rl_cfg():
             "action_decoder": {"hidden_size": 8, "num_layers": 1, "n_mixtures": 2}}
 
 
+def _ril_cfg():
+    return {"high_level_policy_modalities": ["robot_obs"], "low_level_policy_modalities": ["robot_obs"],
+            "vector_dims": {"robot_obs": 3}, "perceptual_encoder": {"networks": {}},
+            "goal_encoder": {"out_features": 4, "hidden_size": 8},
+            "high_level_policy": {"num_layers": 1, "hidden_dim": 8},
+            "low_level_policy": {"num_layers": 1, "hidden_dim": 8}}
+
+
 def _cql_cfg():
     import chip_smoke
 
@@ -138,11 +150,11 @@ def _cql_cfg():
      "load_module_from_checkpoint", "LatentPlanAgent", "TACORLAgent", "FlatPolicyAgent",
      "make_agent", "evaluate.main", "Trainer", "train.main", "DevicePut", "PlayLMPD4RLModule",
      "TACORLD4RLModule", "LatentPlanD4RLAgent", "TACORLD4RLAgent", "make_d4rl_agent",
-     "evaluate_d4rl.main"],
+     "evaluate_d4rl.main", "RILModule", "RILAgent", "OracleSubgoalAgent", "evaluate_ril_oracle.main"],
 )
 def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     _no_cuda()
-    from tacorl_tpu_torch import evaluate, evaluate_d4rl, train
+    from tacorl_tpu_torch import evaluate, evaluate_d4rl, evaluate_ril_oracle, train
     from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
     from tacorl_tpu_torch.core.trainer import Trainer
     from tacorl_tpu_torch.data.loader import DevicePut
@@ -150,6 +162,7 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     from tacorl_tpu_torch.evaluation import agents
     from tacorl_tpu_torch.modules.cql import CQLModule
     from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
+    from tacorl_tpu_torch.modules.ril import RILModule
     from tacorl_tpu_torch.modules.tacorl import TACORLModule
     from tacorl_tpu_torch.utils import resolve_device
 
@@ -188,6 +201,11 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "TACORLD4RLAgent": lambda: agents.TACORLD4RLAgent(TACORLD4RLModule({"play_lmp_dir": str(d4rl_dir)}), None),
         "make_d4rl_agent": lambda: agents.make_d4rl_agent(*load_module_from_checkpoint(d4rl_dir)),
         "evaluate_d4rl.main": lambda: evaluate_d4rl.main([f"module_path={d4rl_dir}"]),
+        "RILModule": lambda: RILModule(_ril_cfg()),
+        "RILAgent": lambda: agents.RILAgent(RILModule(_ril_cfg()), None),
+        "OracleSubgoalAgent": lambda: agents.OracleSubgoalAgent(RILModule(_ril_cfg()), None, None),
+        "evaluate_ril_oracle.main": lambda: evaluate_ril_oracle.main(
+            [f"module_path={tmp_path}", f"data_dir={tmp_path}"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()

@@ -383,14 +383,6 @@ def test_manager_generator_lives_on_the_agent_device_and_runs_on(agent_pairs):
     assert not np.array_equal(pos1, pos3)
 
 
-@pytest.mark.parametrize("family", ["tacorl", "cql"])
-def test_cem_waits_for_its_roadmap_item(agent_pairs, family):
-    module = agent_pairs[family][1][0].module
-    state = type("S", (), {"net": agent_pairs[family][1][0].net})()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        agents.make_agent(module, state, use_cem=True)
-
-
 def test_interpolation_matrices_are_made_once_per_device():
     """The eval transform's interpolation matrices are built and copied to
     the device once: later calls reuse them, with the same values."""

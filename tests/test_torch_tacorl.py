@@ -106,7 +106,10 @@ def lmp_dirs(tmp_path_factory):
     checkpoint."""
     cfg = _lmp_cfg()
     jmod = JaxPlayLMPModule(dict(cfg))
-    jstate = jmod.init_state(jax.random.key(2), {"states": _batch()["states"], "actions": _batch()["actions"]})
+    # the init traced once: flax's eager init of the whole net is slow
+    jstate = jax.jit(jmod.init_state)(
+        jax.random.key(2), {"states": _batch()["states"], "actions": _batch()["actions"]}
+    )
     jax_dir = tmp_path_factory.mktemp("jax_lmp")
     JaxCheckpointManager(jax_dir, config={"module": dict(cfg)}).save(int(jstate.step), jstate)
 

@@ -33,7 +33,8 @@ CONFIGS = REPO / "configs"
 @pytest.mark.parametrize(
     "experiment",
     ["play_lmp_for_rl", "tacorl", "play_lmp_fake", "cql_fake", "cql_fake_state", "tacorl_fake",
-     "play_lmp_d4rl", "tacorl_d4rl", "cql_d4rl", "play_lmp_d4rl_fake", "tacorl_d4rl_fake"],
+     "play_lmp_d4rl", "tacorl_d4rl", "cql_d4rl", "play_lmp_d4rl_fake", "tacorl_d4rl_fake",
+     "ril", "ril_fake", "ril_fake_state"],
 )
 def test_compose_matches_jax_on_train_yaml(experiment):
     overrides = [f"experiment={experiment}", "data_dir=/data", "play_lmp_dir=/runs/lmp",
@@ -167,6 +168,70 @@ def test_cql_fake_state_trains_and_scores(tmp_path):
         f"filename={tmp_path / 'best.json'}",
     ])
     assert results and all(0.0 <= r["accuracy"] <= 1.0 for r in results.values())
+
+
+RIL_TINY = ["module.high_level_policy.hidden_dim=16", "module.low_level_policy.hidden_dim=16",
+            "module.goal_encoder.hidden_size=16"]
+
+
+def test_ril_fake_state_trains_and_scores(tmp_path):
+    """Relay IL on robot_obs/scene_obs vectors: 2 epochs with the rollout
+    monitor driving the RIL agent, then ``evaluate epoch=best`` and
+    ``evaluate_ril_oracle`` with both high levels."""
+    from tacorl_tpu_torch import evaluate_ril_oracle
+
+    data = tmp_path / "play"
+    generate_expert_play(data, n_train_episodes=2, n_val_episodes=2, tasks_per_episode=2, seed=3)
+    run = tmp_path / "run"
+    trainer = train.main([
+        "+device=cpu", "experiment=ril_fake_state", f"data_dir={data}", f"run_dir={run}",
+        "trainer.max_epochs=2", "trainer.log_every_n_steps=1", "datamodule.batch_size=8",
+        *RIL_TINY, "callbacks.rollout.num_rollouts_per_task=1", "env.max_episode_steps=6",
+    ])
+    assert [type(cb).__name__ for cb in trainer.callbacks] == ["RolloutCallback"]
+    net = trainer.state.net
+    assert type(net).__name__ == "RILNet" and net.perceptual_encoder.networks.keys() == set()
+    assert net.low_level_policy.discrete_gripper and net.goal_encoder.mlp[-1].out_features == 64
+    rows = _rows(run)
+    losses = [r["train/total_loss"] for r in rows if "train/total_loss" in r]
+    assert len(losses) == trainer.global_step > 2 and np.all(np.isfinite(losses))
+    assert sum("validation/high_level_loss" in r for r in rows) == 2
+    assert len([r for r in rows if "val_accuracy" in r]) == 2
+    common = [f"data_dir={data / 'validation'}", "env.max_episode_steps=6", "env.task_set=hard",
+              *VECTOR_ENV, "min_seq_len=1", "max_seq_len=64", "max_rollouts=2", "plan_duration=3"]
+    results = evaluate.main(["+device=cpu", f"module_path={run}", "epoch=best",
+                             f"filename={tmp_path / 'best.json'}", *common])
+    assert results and all(0.0 <= r["accuracy"] <= 1.0 for r in results.values())
+    for learned in ("false", "true"):
+        scored = evaluate_ril_oracle.main(["+device=cpu", f"module_path={run}", "lookahead=4",
+                                           f"learned_hl={learned}", f"filename={tmp_path / learned}.json",
+                                           *common])
+        assert scored.keys() == results.keys()
+
+
+@pytest.mark.parametrize("experiment", ["ril", "ril_fake"])
+def test_visual_ril_trains(calvin, tmp_path, experiment):
+    """The visual RIL experiments at tiny widths on synthetic frames:
+    ``ril`` with its offline-RL callbacks (the linear horizon is a no-op on
+    a RILDataset), ``ril_fake`` with the fake transforms."""
+    run = tmp_path / "run"
+    trainer = train.main([
+        "+device=cpu", f"experiment={experiment}", f"data_dir={calvin}", f"run_dir={run}",
+        "trainer.max_steps=3", "trainer.log_every_n_steps=1", "datamodule.batch_size=8",
+        "datamodule.val_percentage=1.0", *RIL_TINY,
+        "module.perceptual_encoder.networks.rgb_static.latent_dim=16",
+        "module.perceptual_encoder.networks.rgb_static.hidden_dim=32",
+        "transforms.rgb_static.size=[48,48]", "datamodule.dataset.max_low_level_window=4",
+        "datamodule.dataset.max_high_level_window=12",
+        *(["~callbacks.rollout"] if experiment == "ril_fake" else []),
+    ])
+    names = [type(cb).__name__ for cb in trainer.callbacks]
+    assert names == (["IncreaseHorizonLinear"] if experiment == "ril" else [])
+    assert type(trainer.datamodule.train_dataset).__name__ == "RILDataset"
+    rows = _rows(run)
+    assert [r["step"] for r in rows if "train/total_loss" in r] == [1, 2, 3]
+    assert all(np.isfinite(r["train/low_level_loss"]) for r in rows if "train/low_level_loss" in r)
+    assert "train/goal_horizon" not in set().union(*rows)
 
 
 def test_state_based_cql_trains_on_saved_transitions(tmp_path):
