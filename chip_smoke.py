@@ -168,6 +168,29 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 through evaluate_all_tasks: env steps/s, ms per decode step
                 and per replan, kernels a step, 0 kernel launches.
 
+ 29. reference_online  the trainer over OnlineRLDataModule (the pinned
+                replay-buffer loader on the card) for the SAC and the
+                CQL-online module, visual (48x48 frames through the kernel
+                on the card) and on vectors, at tiny float32 widths, on the
+                card and on the CPU from the same weights, warm-start buffer
+                and draws (the play step's included): 4 steps over 2
+                epochs, every logged metric within rtol 1e-4 and every play
+                action within 1e-4.
+ 30. train_online  experiment=sac_online and cql_online at their composed
+                widths (lmp_vision_encoder, 3x256 MLP policy and critics,
+                batch 256, FakeCalvinEnv 64x64 frames -> 128x128 bf16, a
+                1,000-step warm start), then sac_online_fake and
+                cql_online_fake (vectors, with the rollout monitor), 2
+                epochs of 12 steps each through train.main (depth cut from
+                steps_per_epoch 1,000): ms/step over the second epoch, busy
+                share, kernels a step, host waits a non-logging and a
+                logging step, env steps/s of the warm start and of the play
+                step, jitter_normalize launches per play step (2 at N=1:
+                observation and goal) and per update (4 at N=256) on the
+                visual runs and 0 on the vector runs; the kernel against its
+                plain version on the run's own frames at N=1 and N=256
+                (bf16, atol 8e-3) and its time at N=1 beside its bytes bound.
+
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -958,6 +981,11 @@ def _uncached_matrices():
         image_aug._interp_on = cached
 
 
+# what torch's sync debug mode says of a synchronizing call (its first use in
+# a process also warns that the mode is a prototype, which is no wait)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
 def _host_syncs(run_step) -> dict:
     """The calls of one ``run_step`` that make the host wait for the device
     (a host copy of a result, a copy from pageable host memory), as torch's
@@ -973,7 +1001,7 @@ def _host_syncs(run_step) -> dict:
             torch.cuda.set_sync_debug_mode("default")
     sites = [
         f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
-        for w in caught if "synchroniz" in str(w.message)
+        for w in caught if SYNC_WARNING in str(w.message)
     ]
     return {site: sites.count(site) for site in dict.fromkeys(sites)}
 
@@ -1561,7 +1589,7 @@ class _TrainProbe(Callback):
         self.warn.__exit__(None, None, None)
         sites = [
             f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
-            for w in self._caught if "synchroniz" in str(w.message)
+            for w in self._caught if SYNC_WARNING in str(w.message)
         ]
         self.syncs[step] = {site: sites.count(site) for site in dict.fromkeys(sites)}
 
@@ -1979,18 +2007,15 @@ def _flat_batch(module, seed: int) -> dict:
             "next_observations": next_obs, "rewards": reached, "terminals": reached}
 
 
-def _flat_draws(module, g) -> dict:
-    """Every draw of one CQL update from the CPU generator ``g``: the actor
-    samples, the random actions, the augmentation of each image leaf (by
-    the module's transform config) and the MC-dropout masks."""
-    bs, n, a = FLAT_BATCH, module.n_action_samples, module.action_dim
-    gripper = module.net.actor.actor.discrete_gripper
+def _flat_draws(module, g, bs: int = FLAT_BATCH) -> dict:
+    """Every draw of one CQL update of ``bs`` transitions from the CPU
+    generator ``g``: the actor samples, the random actions, the augmentation
+    of each image leaf (by the module's transform config) and the
+    MC-dropout masks."""
+    n, a = module.n_action_samples, module.action_dim
 
     def actor(*lead):
-        if not gripper:
-            return {"eps": torch.randn(lead + (a,), generator=g)}
-        return {"eps": torch.randn(lead + (a - 1,), generator=g),
-                "gumbel_u": torch.rand(lead + (2,), generator=g) * (1 - 2e-6) + 1e-6}
+        return _actor_draws(module, g, *lead)
 
     draws = {"curr": actor(bs), "next_bellman": actor(bs), "curr_n": actor(n, bs),
              "next_n": actor(n, bs), "rand": torch.rand((bs * n, a), generator=g) * 2.0 - 1.0}
@@ -1998,20 +2023,32 @@ def _flat_draws(module, g) -> dict:
         q = module.net.q1.critic.Q
         draws["dropout"] = {rows: torch.rand((rows, q.hidden_dim), generator=g) >= q.dropout_p
                             for rows in (bs, n * bs)}
+    if any(c.get("kind") == "rgb" for m, c in module.transforms.cfg.items() if m in module.obs_modalities):
+        draws["aug_obs"], draws["aug_next_obs"] = _aug_draws(module, g, bs), _aug_draws(module, g, bs)
+    return draws
+
+
+def _actor_draws(module, g, *lead) -> dict:
+    """The actor's standard normals (and, with a gripper, Gumbel uniforms)
+    for actions of shape ``lead``, from the CPU generator ``g``."""
+    a = module.action_dim
+    if not module.net.actor.actor.discrete_gripper:
+        return {"eps": torch.randn(lead + (a,), generator=g)}
+    return {"eps": torch.randn(lead + (a - 1,), generator=g),
+            "gumbel_u": torch.rand(lead + (2,), generator=g) * (1 - 2e-6) + 1e-6}
+
+
+def _aug_draws(module, g, n: int) -> dict:
+    """The DeviceTransforms draws of ``n`` observation/goal pairs for each
+    image leaf of the module, from the CPU generator ``g``."""
     images = {m: c for m, c in module.transforms.cfg.items() if c.get("kind") == "rgb"
               and m in module.obs_modalities}
-
-    def aug():
-        return {part: {m: {
-            "shifts": torch.randint(0, 2 * int(c.get("pad", 6)) + 1, (bs, 2), generator=g),
-            "factors": sample_jitter_factors(
-                bs, g, brightness=float(c.get("brightness", 0.1)), contrast=float(c.get("contrast", 0.1)),
-                hue=float(c.get("hue", 0.02)), prob=float(c.get("jitter_prob", 1.0))),
-        } for m, c in images.items()} for part in ("observation", "goal")}
-
-    if images:
-        draws["aug_obs"], draws["aug_next_obs"] = aug(), aug()
-    return draws
+    return {part: {m: {
+        "shifts": torch.randint(0, 2 * int(c.get("pad", 6)) + 1, (n, 2), generator=g),
+        "factors": sample_jitter_factors(
+            n, g, brightness=float(c.get("brightness", 0.1)), contrast=float(c.get("contrast", 0.1)),
+            hue=float(c.get("hue", 0.02)), prob=float(c.get("jitter_prob", 1.0))),
+    } for m, c in images.items()} for part in ("observation", "goal")}
 
 
 def phase_reference_cql() -> None:
@@ -2774,6 +2811,279 @@ def phase_rollout_ril(card: str, flat_data: str, root: str) -> dict:
     print(f"[rollout_ril] {ROLLOUTS_PER_TASK} rollouts a task; kernel launches {launches} | {card}", flush=True)
     return launches
 
+# -- online SAC and CQL-online -------------------------------------------------------------
+
+ONLINE_EXPERIMENTS = ("sac_online", "cql_online", "sac_online_fake", "cql_online_fake")
+ONLINE_VISUAL = ("sac_online", "cql_online")
+# jitter_normalize launches on a visual online path: the play step's
+# observation and goal at N=1, the update's observation, goal, next
+# observation and next goal at N=256
+ONLINE_PLAY_LAUNCHES, ONLINE_UPDATE_LAUNCHES = 2, 4
+ONLINE_REF_BATCH, ONLINE_REF_STEPS = 8, 4
+PLAY_RATE_STEPS = 100
+
+
+def _online_tiny_cfg(family: str, layout: str) -> dict:
+    """tests/test_torch_online_rl.py's tiny float32 layouts."""
+    enc = {"networks": {"rgb_static": {"_target_": "tacorl_tpu.networks.encoders.LMPVisionEncoder",
+                                       "latent_dim": 8, "hidden_dim": 16, "compute_dtype": None}}}
+    fake = "tacorl_tpu.envs.fake_calvin."
+    cfg = {"action_dim": 7, "actor_lr": 1e-3, "critic_lr": 1e-3, "actor_encoder": enc, "critic_encoder": enc,
+           "goal_encoder": {"hidden_size": 16}, "q_network": {"num_layers": 2, "hidden_dim": 16},
+           "policy": {"num_layers": 2, "hidden_dim": 16, "discrete_gripper": True},
+           "warm_start_steps": 16, "n_action_samples": 3, "with_lagrange": family == "cql_online"}
+    if layout == "visual":
+        cfg.update(obs_modalities=["rgb_static"], goal_modalities=["rgb_static"],
+                   transforms={"rgb_static": {"kind": "rgb", "size": [48, 48], "pad": 2}},
+                   env={"_target_": fake + "FakeCalvinEnv", "image_hw": 48, "max_episode_steps": 5})
+    else:
+        mods = ["robot_obs", "scene_obs"]
+        cfg.update(obs_modalities=mods, goal_modalities=mods, vector_dims={"robot_obs": 15, "scene_obs": 24},
+                   transforms={m: {"kind": "vector"} for m in mods},
+                   env={"_target_": fake + "FakePlayTableEnv", "task": "open_drawer", "tcp_shaping_weight": 1.0,
+                        "modalities": mods, "goal_modalities": mods, "max_episode_steps": 4})
+    return cfg
+
+
+def _online_module(family: str, cfg: dict, device: str):
+    from tacorl_tpu_torch.modules.cql_online import CQLOnlineModule
+    from tacorl_tpu_torch.modules.sac import SACModule
+
+    return {"sac": SACModule, "cql_online": CQLOnlineModule}[family](cfg, device=device)
+
+
+def phase_reference_online() -> None:
+    """The trainer over OnlineRLDataModule on the card and on the CPU for
+    each online family and layout at tiny float32 widths: the same weights
+    (init_state from one seed), the same warm-start buffer (numpy's random
+    fill) and the same draws (a CPU generator seeded by the step: the update's
+    and the play step's), 4 steps over 2 epochs. Every logged metric must
+    agree within rtol 1e-4 and every play action within 1e-4, so a batch
+    that the pinned buffer loader or the side-stream prefetch delivered
+    wrong or late shows here."""
+    from tacorl_tpu_torch.core.logging import MetricsSink
+    from tacorl_tpu_torch.core.trainer import Trainer
+    from tacorl_tpu_torch.data.online_datamodule import OnlineRLDataModule
+
+    lines = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for family in ("sac", "cql_online"):
+            for layout in ("visual", "vector"):
+                rows, actions = {}, {}
+                for device in ("cpu", "cuda"):
+                    module = _online_module(family, _online_tiny_cfg(family, layout), device)
+
+                    def source(split, index, module=module, device=device):
+                        g = torch.Generator().manual_seed(index)
+                        draws = _flat_draws(module, g, ONLINE_REF_BATCH)
+                        draws["play"] = {"action": _actor_draws(module, g, 1), "aug": _aug_draws(module, g, 1)}
+                        return {"draws": _to_device(draws, device)}
+
+                    sink = MetricsSink(f"{tmp}/{family}_{layout}/{device}", console_every=0)
+                    dm = OnlineRLDataModule(batch_size=ONLINE_REF_BATCH, steps_per_epoch=2, seed=1)
+                    Trainer(max_steps=ONLINE_REF_STEPS, log_every_n_steps=1, sink=sink, seed=1, device=device,
+                            draw_source=source).fit(module, dm)
+                    sink.close()
+                    rows[device] = _metrics_rows(f"{tmp}/{family}_{layout}/{device}")
+                    actions[device] = np.stack([t.action for t in module.replay_buffer.buffer])
+                tag = f"reference_online {family}/{layout}"
+                _check([r["step"] for r in rows["cuda"]] == [r["step"] for r in rows["cpu"]], f"{tag}: steps")
+                _check(actions["cuda"].shape == actions["cpu"].shape == (16 + ONLINE_REF_STEPS, 7),
+                       f"{tag}: buffers {actions['cuda'].shape} vs {actions['cpu'].shape}")
+                act_err = float(np.abs(actions["cuda"] - actions["cpu"]).max())
+                _check(act_err <= 1e-4, f"{tag}: play actions differ by {act_err}")
+                worst, n = 0.0, 0
+                for card_row, cpu_row in zip(rows["cuda"], rows["cpu"]):
+                    _check(set(card_row) == set(cpu_row), f"{tag}: metric keys")
+                    for k, v in cpu_row.items():
+                        if k in ("step", "time"):
+                            continue
+                        n += 1
+                        err = abs(card_row[k] - v) / max(abs(v), 1e-6)
+                        worst = max(worst, err)
+                        _check(np.isfinite(card_row[k]) and err <= 1e-4,
+                               f"{tag} {k} at step {cpu_row['step']}: card {card_row[k]} vs cpu {v}")
+                conservative = any("train/conservative_q1_gap" in r for r in rows["cpu"])
+                _check(conservative == (family == "cql_online"), f"{tag}: conservative metrics {conservative}")
+                lines.append(f"{family}/{layout} {n} metrics, largest relative difference {worst:.3g}, "
+                             f"play actions {act_err:.3g}")
+    print("[reference_online] trainer over the replay-buffer loader, card vs CPU, tiny float32 widths, "
+          f"{ONLINE_REF_STEPS} steps in 2 epochs (metrics rtol 1e-4, actions 1e-4): " + "; ".join(lines),
+          flush=True)
+
+
+class _OnlineProbe(_TrainProbe):
+    """_TrainProbe, plus each play step's jitter_normalize launches and host
+    time (its one wait for the device included: the action waits for the
+    update queued before it)."""
+
+    def on_fit_start(self, trainer, module):
+        super().on_fit_start(trainer, module)
+        self.play_launches, self.play_ms = [], []
+        play_step = module.play_step
+
+        def counted(*args, **kwargs):
+            before, t0 = jitter_normalize.launches, time.perf_counter()
+            out = play_step(*args, **kwargs)
+            self.play_ms.append((time.perf_counter() - t0) * 1e3)
+            self.play_launches.append(jitter_normalize.launches - before)
+            return out
+
+        module.play_step = counted
+
+
+@contextlib.contextmanager
+def _timed_populate():
+    """Times SACModule.populate (the warm start) while the block runs."""
+    from tacorl_tpu_torch.modules.sac import SACModule
+
+    populate, out = SACModule.populate, {}
+
+    def timed(self, net, steps=None):
+        n0, t0 = len(self.replay_buffer), time.perf_counter()
+        populate(self, net, steps)
+        out.update(s=time.perf_counter() - t0, steps=len(self.replay_buffer) - n0)
+
+    SACModule.populate = timed
+    try:
+        yield out
+    finally:
+        SACModule.populate = populate
+
+
+def _online_kernel_check(module) -> dict:
+    """jitter_normalize against its plain version on the run's own frames:
+    a replay-buffer batch of 256 observations and the env's current
+    observation (N=1), each resized and shifted to 128x128 bf16 with the
+    transform's ranges; at N=1 also its device time, the plain version's
+    and the bytes bound (at one image the time is the launch, not bytes)."""
+    cfg = module.transforms.cfg["rgb_static"]
+    batch = module.replay_buffer.sample(256, np.random.default_rng(0))
+    g = torch.Generator(device="cuda").manual_seed(13)
+    pad, size = int(cfg["pad"]), tuple(cfg["size"])
+
+    def prepared(frames):
+        frames = torch.as_tensor(frames).cuda().movedim(-1, -3).contiguous()
+        n = frames.shape[0]
+        shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device="cuda")
+        x = image_aug.resize_shift(frames, shifts, size, pad, dtype=torch.bfloat16).contiguous()
+        f = sample_jitter_factors(n, g, brightness=cfg["brightness"], contrast=cfg["contrast"],
+                                  hue=cfg["hue"], prob=cfg["jitter_prob"])
+        return x, f
+
+    out = {}
+    for n, frames in ((256, batch["observations"]["observation"]["rgb_static"]),
+                      (1, module._observation["observation"]["rgb_static"][None])):
+        x, f = prepared(frames)
+        _check(tuple(x.shape) == (n, 3, 128, 128) and x.dtype == torch.bfloat16, f"train_online: kernel input {x.shape}")
+        out[n] = _compare(jitter_normalize(x, f), jitter_normalize_reference(x, f), BF16_ATOL,
+                          f"train_online: jitter_normalize vs plain at ({n}, 3, 128, 128) bf16")
+    out["ms_n1"] = _device_ms(lambda: jitter_normalize(x, f))
+    out["plain_ms_n1"] = _time_ms(lambda: jitter_normalize_reference(x, f))
+    bound = _kernel_bound_ms(x, f)
+    out["bound_ms_n1"], out["bound_by_n1"] = bound[0], bound[1]
+    out["geometry_n1"] = jitter_normalize_geometry(1, 128, 128)
+    return out
+
+
+def phase_train_online(card: str, root: str) -> tuple:
+    """experiment=sac_online, cql_online (visual, composed widths, the
+    1,000-step warm start uncut), sac_online_fake and cql_online_fake
+    (vectors, the rollout monitor) through train.main, 2 epochs of 12
+    steps each (steps_per_epoch cut from 1,000 and 250): the phase-16
+    measurements plus the play step's launches and env steps/s. Returns
+    the jitter_normalize launches of each run and the kernel's numbers on
+    the visual runs' frames."""
+    from tacorl_tpu_torch import train
+
+    launches, kernel, lines = {}, {}, []
+    for experiment in ONLINE_EXPERIMENTS:
+        visual = experiment in ONLINE_VISUAL
+        probe = _OnlineProbe()
+        jitter_normalize.launches = shift_jitter_normalize.launches = 0
+        with _timed_populate() as pop:
+            t0 = time.perf_counter()
+            trainer = train.main(
+                [f"experiment={experiment}", f"run_dir={root}/{experiment}", f"trainer.max_steps={TRAIN_STEPS}",
+                 f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}", "datamodule.steps_per_epoch=12"],
+                callbacks=[probe],
+            )
+            wall = time.perf_counter() - t0
+        tag = f"train_online/{experiment}"
+        launches[experiment] = {"jitter_normalize": jitter_normalize.launches,
+                                "shift_jitter_normalize": shift_jitter_normalize.launches}
+        module = probe.module
+        play, update = ((ONLINE_PLAY_LAUNCHES, ONLINE_UPDATE_LAUNCHES) if visual else (0, 0))
+        updates = [s - p for s, p in zip(probe.step_launches, probe.play_launches)]
+        _check(trainer.device.type == "cuda" and probe.epoch_steps == [12, 12], f"{tag}: {probe.epoch_steps}")
+        _check(len(probe.play_launches) == TRAIN_STEPS and all(n == play for n in probe.play_launches),
+               f"{tag}: launches per play step {probe.play_launches}")
+        _check(all(n == update for n in updates), f"{tag}: launches per update {updates}")
+        _check(launches[experiment] == {"jitter_normalize": (play + update) * TRAIN_STEPS, "shift_jitter_normalize": 0},
+               f"{tag}: launches {launches[experiment]}")
+        _check(pop.get("steps") == module.warm_start_steps, f"{tag}: warm start {pop}")
+        _check(len(module.replay_buffer) == module.warm_start_steps + TRAIN_STEPS, f"{tag}: buffer")
+        _check(("log_alpha_prime" in trainer.state.net.state_dict()) == experiment.startswith("cql"),
+               f"{tag}: log_alpha_prime")
+        after = trainer.state.net.state_dict()
+        changed = [p for p in ("actor", "q1", "q2")
+                   if any(not torch.equal(probe.before[k], after[k]) for k in probe.before if k.startswith(p + "."))]
+        _check(changed == ["actor", "q1", "q2"], f"{tag}: changed {changed}")
+        rows = _metrics_rows(trainer.ckpt.dir)
+        train_rows = [r for r in rows if any(k.startswith("train/") for k in r)]
+        _check(bool(train_rows) and all(np.isfinite(v) for r in train_rows for k, v in r.items()
+                                        if k.startswith("train/")), f"{tag}: non-finite or missing train metrics")
+        _check(any("train/conservative_q1_gap" in r for r in train_rows) == experiment.startswith("cql"),
+               f"{tag}: conservative metrics")
+        accs = [r["val_accuracy"] for r in rows if "val_accuracy" in r]
+        _check(len(accs) == (0 if visual else 2), f"{tag}: val_accuracy {accs}")
+        ms = probe.ms_per_step()
+        waits = {step: sum(probe.syncs[step].values()) for step in (TIMED_TO + 1, TIMED_TO + 2)}
+        _check(waits[TIMED_TO + 1] == 1, f"{tag}: host waits a non-logging step {probe.syncs[TIMED_TO + 1]}")
+        # the play step alone: the net as trained, a sync before the first
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        for _ in range(PLAY_RATE_STEPS):
+            module.play_step(trainer.state.net, "stochastic")
+        play_rate = PLAY_RATE_STEPS / (time.perf_counter() - t1)
+        epoch1 = trainer.batch_wait_ms[-12:]
+        print(
+            f"[{tag}] {probe.steps_seen} steps in 2 epochs of 12: {ms:.3f} ms/step ({1e3 / ms:.2f} steps/s) over "
+            f"steps {TIMED_FROM + 1}-{TIMED_TO} of the second epoch | profile of steps {PROFILE_FROM + 1}-"
+            f"{PROFILE_FROM + PROFILE_STEPS}: {probe.wall_ms:.3f} ms/step under the profiler, device kernels "
+            f"{probe.device_ms:.3f} ms/step, busy {probe.device_ms / probe.wall_ms:.1%}; {probe.kernels:.0f} kernels "
+            f"and {probe.copies:.1f} copies per step | host waits a non-logging / logging step "
+            f"{waits[TIMED_TO + 1]} / {waits[TIMED_TO + 2]}, at: {_sites(probe.syncs[TIMED_TO + 1])} / "
+            f"{_sites(probe.syncs[TIMED_TO + 2])} | batch wait "
+            f"(sampling on the training thread) median {statistics.median(epoch1):.3f} ms, max {max(epoch1):.3f} ms | "
+            f"{train_loss_line(train_rows)} | {card}",
+            flush=True,
+        )
+        print(
+            f"[{tag}] warm start {pop['steps']} env steps in {pop['s']:.2f} s ({pop['steps'] / pop['s']:.1f} env "
+            f"steps/s); play step in the loop median {statistics.median(probe.play_ms):.3f} ms (its wait includes "
+            f"the update queued before it), alone {play_rate:.1f} env steps/s over {PLAY_RATE_STEPS} | "
+            f"jitter_normalize launches per play step {sorted(set(probe.play_launches))}, per update "
+            f"{sorted(set(updates))}, {launches[experiment]['jitter_normalize']} in {TRAIN_STEPS} steps | "
+            f"val_accuracy {accs} | train.main {wall:.1f} s | {card}",
+            flush=True,
+        )
+        if visual:
+            kernel[experiment] = _online_kernel_check(module)
+            k = kernel[experiment]
+            print(
+                f"[{tag}] jitter_normalize vs plain on the run's frames, bf16: N=256 max abs err {k[256]:.3g}, "
+                f"N=1 {k[1]:.3g} (atol {BF16_ATOL}) | N=1: {k['ms_n1']:.4f} ms (launch-bound), bytes bound "
+                f"{k['bound_ms_n1']:.6f} ms ({k['bound_by_n1']}), plain {k['plain_ms_n1']:.4f} ms, geometry "
+                f"{k['geometry_n1']} | {card}",
+                flush=True,
+            )
+        lines.append(f"{experiment} {ms:.3f} ms/step, {play_rate:.1f} play env steps/s")
+        del trainer, probe, module
+        torch.cuda.empty_cache()
+    print(f"[train_online] {'; '.join(lines)} | {card}", flush=True)
+    return launches, kernel
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2823,6 +3133,9 @@ def main() -> int:
         phase_reference_ril()
         launches_ril = phase_train_ril(card, train_data, flat_data, pct, tmp)
         rollout_ril = phase_rollout_ril(card, flat_data, tmp)
+    phase_reference_online()
+    with tempfile.TemporaryDirectory() as tmp:
+        launches_online, online_kernel = phase_train_online(card, tmp)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -2833,7 +3146,15 @@ def main() -> int:
         "train_ril": launches_ril["ril"]["jitter_normalize"],
         "train_ril_state": launches_ril["ril_fake_state"]["jitter_normalize"],
         "rollout_ril": rollout_ril["jitter_normalize"],
+        **{f"train_online/{e}": n["jitter_normalize"] for e, n in launches_online.items()},
     }
+    first = online_kernel[ONLINE_VISUAL[0]]
+    kernel.update(
+        max_abs_err_online_n256=max(k[256] for k in online_kernel.values()),
+        max_abs_err_online_n1=max(k[1] for k in online_kernel.values()),
+        ms_n1=first["ms_n1"], plain_ms_n1=first["plain_ms_n1"], bound_ms_n1=first["bound_ms_n1"],
+        bound_by_n1=first["bound_by_n1"], geometry_n1=first["geometry_n1"],
+    )
     shift["launches_by_path"] = {
         "augment": shift["launches"], "rollout": rollout["shift_jitter_normalize"],
         "rollout_tacorl": rollout_tacorl["shift_jitter_normalize"],
@@ -2842,6 +3163,7 @@ def main() -> int:
         "train_ril": launches_ril["ril"]["shift_jitter_normalize"],
         "train_ril_state": launches_ril["ril_fake_state"]["shift_jitter_normalize"],
         "rollout_ril": rollout_ril["shift_jitter_normalize"],
+        **{f"train_online/{e}": n["shift_jitter_normalize"] for e, n in launches_online.items()},
     }
     print(json.dumps({"kernels": [kernel, shift]}))
     print(card)

@@ -293,6 +293,10 @@ class RolloutCallback(_BaseRolloutCallback):
                 "val_episode_return": overall["avg_episode_return"],
                 "val_episode_length": overall["avg_episode_length"],
             })
+            # online RL snapshots its replay buffer after each rollout
+            # evaluation (rollout.py:530-532, sac_lightning.py:446-451)
+            if hasattr(module, "save_checkpoint_extras"):
+                module.save_checkpoint_extras()
         else:
             self._log(trainer, {f"{prefix}/{k}": v for k, v in overall.items()})
         logger.info(

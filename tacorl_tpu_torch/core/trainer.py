@@ -3,6 +3,10 @@ step loop on one explicit device, validation, checkpoints with auto-resume,
 callbacks.
 
 What the JAX trainer does, the port does the same way:
+  * the online-RL hooks, in the JAX order: ``datamodule.set_module(module)``
+    and ``module.populate(None)`` (the replay buffer's warm-start fill)
+    before ``datamodule.setup()``, and ``module.save_checkpoint_extras()``
+    (the buffer's snapshot) after each checkpoint;
   * init, or auto-resume from the latest checkpoint; a resumed run starts
     at epoch 0 with ``global_step`` from the checkpoint (so its loader
     replays epoch 0's order, as the JAX trainer's does);
@@ -151,6 +155,11 @@ class Trainer:
         if resolve_device(module.device) != self.device:
             raise ValueError(f"module on {module.device}, trainer on {self.device}")
         self.datamodule = datamodule
+        online = hasattr(datamodule, "set_module")
+        if online:
+            datamodule.set_module(module)
+        if hasattr(module, "populate"):
+            module.populate(None)  # the warm-start fill (random strategy)
         datamodule.setup()
         train_loader = self._loader(datamodule.train_loader())
 
@@ -159,6 +168,11 @@ class Trainer:
             self.global_step = int(self.state.step)
             logger.info("resumed from step %d", self.global_step)
         else:
+            if online:
+                # the JAX trainer initializes from one batch of the loader
+                # it trains with; the replay-buffer loader's generator moves
+                # on by that draw, so an online run draws and drops it too
+                next(iter(train_loader))
             self.state = module.init_state(self.seed)
         train_step = module.make_train_step()
         val_step = module.make_val_step()
@@ -210,12 +224,12 @@ class Trainer:
             if self.ckpt is not None and (
                 (epoch + 1) % self.ckpt_every_n_epochs == 0 or self._should_stop()
             ):
-                self._save()
+                self._save(module)
             epoch += 1
         self._cb("on_fit_end", module)
         return self.state
 
-    def _save(self) -> None:
+    def _save(self, module) -> None:
         t0 = time.perf_counter()
         self.ckpt.save(self.global_step, self.state, metrics=self._last_val_metrics)
         ms = (time.perf_counter() - t0) * 1e3
@@ -224,6 +238,8 @@ class Trainer:
         self.saves.append((self.global_step, nbytes, ms))
         logger.info("saved step %d: %d bytes in %.1f ms", self.global_step, nbytes, ms)
         self._save_callback_states()
+        if hasattr(module, "save_checkpoint_extras"):
+            module.save_checkpoint_extras()
 
     # -- callback state rides next to the checkpoints -------------------------
 

@@ -32,9 +32,13 @@ from tacorl_tpu_torch.utils import resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
 
-# module family -> (agent class, rollout manager)
+# module family -> (agent class, rollout manager); online SAC and CQL score
+# with the flat agent, as evaluation/agents.py:make_agent maps them (the
+# table of scripts/evaluate.py lacks them)
 AGENTS = {
     "cql": ("tacorl_tpu_torch.evaluation.agents.FlatPolicyAgent", "RLRollout"),
+    "sac": ("tacorl_tpu_torch.evaluation.agents.FlatPolicyAgent", "RLRollout"),
+    "cql_online": ("tacorl_tpu_torch.evaluation.agents.FlatPolicyAgent", "RLRollout"),
     "tacorl": ("tacorl_tpu_torch.evaluation.agents.TACORLAgent", "TACORLRollout"),
     "play_lmp": ("tacorl_tpu_torch.evaluation.agents.LatentPlanAgent", "LatentPlanRollout"),
     "ril": ("tacorl_tpu_torch.evaluation.agents.RILAgent", "RILRollout"),
@@ -46,7 +50,7 @@ def build_agent_and_manager(module, state, cfg):
         raise NotImplementedError(f"no port agent for module {module.name!r} yet (see ROADMAP.md)")
     agent_cls_name, manager_name = AGENTS[module.name]
     kwargs = {}
-    if module.name in ("cql", "tacorl"):
+    if module.name in ("cql", "sac", "cql_online", "tacorl"):
         kwargs = {
             "use_cem": bool(cfg.get("use_cem", False)),
             "cem_cfg": cfg.get("cem") or {},

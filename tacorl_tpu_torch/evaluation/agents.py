@@ -42,6 +42,18 @@ __all__ = [
 ]
 
 
+def batch_of_one(obs: Any, device: torch.device) -> Any:
+    """A numpy observation (dict) as a batch of 1 on ``device``, through
+    page-locked memory on a card, so the upload does not make the host
+    wait."""
+    if isinstance(obs, dict):
+        return {k: batch_of_one(v, device) for k, v in obs.items()}
+    x = torch.from_numpy(np.ascontiguousarray(obs)[None])
+    if device.type == "cuda":
+        return x.pin_memory().to(device, non_blocking=True)
+    return x
+
+
 def make_agent(module, state, use_cem: bool = False, cem_cfg: dict = None):
     """Agent and rollout-manager class by module family."""
     from tacorl_tpu_torch.evaluation import rollout_manager as rm
@@ -79,13 +91,7 @@ class _ModuleAgent:
         self.carry = None
 
     def _batched(self, obs: Any) -> Any:
-        """A numpy observation (dict) as a batch of 1 on the device."""
-        if isinstance(obs, dict):
-            return {k: self._batched(v) for k, v in obs.items()}
-        x = torch.from_numpy(np.ascontiguousarray(obs)[None])
-        if self.device.type == "cuda":
-            return x.pin_memory().to(self.device, non_blocking=True)
-        return x
+        return batch_of_one(obs, self.device)
 
     def _draws(self, draws: Optional[Dict]) -> Optional[Dict]:
         if draws is None:

@@ -53,6 +53,12 @@ modalities encoded, vector modalities passed through, as
 flat arrays (observation and goal concatenated) straight into the actor
 and critics, with no encoders.
 
+Without the conservative term (``use_conservative = False``, online SAC in
+``modules/sac.py``) the critic loss is the Bellman term alone (plus DR3):
+the step draws no n-action samples, no random actions and no n * bs
+dropout mask, takes no alpha' step and reports no ``conservative_*``,
+``*_random``, ``*_policy`` or ``alpha_prime`` metric, as the JAX step.
+
 Not ported (it raises): the VIB regularizer (``with_vib``). The JAX
 package cannot run it either: its ``init_state`` and critic applies supply
 no ``"sample"`` rng for the VIB encoder (ROADMAP Queue 3).
@@ -115,6 +121,9 @@ class CQLNet(nn.Module):
 
 class CQLModule(AlgorithmModule):
     name = "cql"
+    # online SAC (modules/sac.py) runs this update without the conservative
+    # penalty (sac_lightning.py:198-232 has no logsumexp term)
+    use_conservative = True
 
     # -- construction --------------------------------------------------------
 
@@ -352,11 +361,12 @@ class CQLModule(AlgorithmModule):
                 if not self.deterministic_backup:
                     q_next = q_next - alpha * next_log_pi
                 q_target = self.reward_scale * rewards + (1.0 - dones) * self.discount * q_next
-                samples = self._conservative_samples(
-                    policy, actor_emb.detach(), actor_emb_next, bs, draws
-                )
-                alpha_prime = None
-                if self.with_lagrange:
+                samples = alpha_prime = None
+                if self.use_conservative:
+                    samples = self._conservative_samples(
+                        policy, actor_emb.detach(), actor_emb_next, bs, draws
+                    )
+                if self.use_conservative and self.with_lagrange:
                     alpha_prime = torch.clamp(torch.exp(net.log_alpha_prime[0]), 0.0, 1e6)
                     metrics["alpha_prime"] = alpha_prime
 
@@ -405,7 +415,8 @@ class CQLModule(AlgorithmModule):
         q = self.net.q1.critic.Q
         given = draws.get("dropout") or {}
         masks = {}
-        for rows in (bs, self.n_action_samples * bs):
+        row_counts = (bs, self.n_action_samples * bs) if self.use_conservative else (bs,)
+        for rows in row_counts:
             if rows in masks:
                 continue
             if rows in given:
@@ -443,11 +454,15 @@ class CQLModule(AlgorithmModule):
         self, q, emb, name, actions, q_target, samples, alpha_prime, next_obs, masks, metrics
     ) -> Tuple[Tensor, Tensor]:
         """Bellman loss, the conservative penalty over the samples scored on
-        the observation embedding tiled n times, and DR3; returns (loss, the
-        raw conservative gap)."""
+        the observation embedding tiled n times (without ``samples``: none),
+        and DR3; returns (loss, the raw conservative gap or None)."""
         n, bs = self.n_action_samples, actions.shape[0]
         q_data = q.critic(emb, actions, masks.get(bs))
         bellman = torch.mean((q_data - q_target) ** 2)
+        metrics[f"{name}_data"] = q_data.mean().detach()
+        metrics[f"bellman_{name}_loss"] = bellman.detach()
+        if samples is None:
+            return self._critic_extra_losses(q, emb, name, bellman, None, next_obs, metrics)
         emb_n = emb.repeat(n, 1)  # jnp.tile(emb, (n, 1))
 
         def n_q(acts):
@@ -473,13 +488,14 @@ class CQLModule(AlgorithmModule):
             alpha_prime * (cons_raw - self.target_action_gap)
             if alpha_prime is not None else cons_raw
         )
-        loss = bellman + cons
-        metrics[f"{name}_data"] = q_data.mean().detach()
-        metrics[f"bellman_{name}_loss"] = bellman.detach()
         metrics[f"{name}_random"] = q_rand.mean().detach()
         metrics[f"{name}_policy"] = q_curr.mean().detach()
         metrics[f"conservative_{name}_loss"] = cons.detach()
         metrics[f"conservative_{name}_gap"] = cons_raw.detach()
+        return self._critic_extra_losses(q, emb, name, bellman + cons, cons_raw, next_obs, metrics)
+
+    def _critic_extra_losses(self, q, emb, name, loss, cons_raw, next_obs, metrics):
+        """DR3 on top of a critic's loss; records ``<name>_loss``."""
         if self.with_dr3:
             with torch.no_grad():
                 emb_next = q.get_emb_representation(next_obs)

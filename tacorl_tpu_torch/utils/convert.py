@@ -252,7 +252,11 @@ def cql_state_dict_from_jax(
     modalities: Sequence[str] = ("rgb_static",),
 ) -> StateDict:
     """JAX ``CQLModule`` params and aux (the target critics) -> port
-    ``CQLNet`` state_dict (the inverse of ``assemble_cql``)."""
+    ``CQLNet`` state_dict (the inverse of ``assemble_cql``). The same tree
+    serves ``SACModule`` and ``CQLOnlineModule``: ``log_alpha_prime`` is
+    carried exactly when the JAX state has one (SAC defaults
+    ``with_lagrange`` to False, ``configs/module/cql_online.yaml`` sets
+    it)."""
     sd = _prefixed("actor.", visual_actor_state_dict(params["actor"], modalities))
     for name, tree in (("q1", params["q1"]), ("q2", params["q2"]),
                        ("target_q1", aux["target_q1"]), ("target_q2", aux["target_q2"])):

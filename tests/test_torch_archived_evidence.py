@@ -8,7 +8,10 @@ the D4RL hierarchy's H100 run (``results/torch_r7_d4rl/``): its two
 recipes, each stage's best ``val_accuracy``, stage 2's last 10
 evaluations, the three 100-rollout scores and the walls. And the RIL run
 (``results/torch_r8_ril/``): its recipe, the in-training evaluations, the
-oracle and learned 48-rollout scores and the walls."""
+oracle and learned 48-rollout scores and the walls. And the online runs
+(``results/torch_r9_online/``): both recipes, the first and best
+evaluations against the JAX package's bars, the conservative penalty's
+flushes and the walls."""
 
 import json
 from pathlib import Path
@@ -197,3 +200,67 @@ def test_ril_readme_names_the_card_and_the_walls():
     walls = dict(line.split() for line in (RIL / "walls.txt").read_text().splitlines())
     assert set(walls) == {"make_flagship_data", "train", "oracle", "learned"}
     assert all(f"{float(v):.1f}" in readme for v in walls.values())
+
+
+# -- online CQL and SAC (results/torch_r9_online/, made by its run.sh) ------------------------
+
+ONLINE = Path(__file__).resolve().parent.parent / "results" / "torch_r9_online"
+# name -> (max_steps, the first evaluation's return, best return and its step, the step of
+# the first val_accuracy of 1.0, tests/test_train_to_success_baselines.py's bars)
+ONLINE_RUNS = {
+    "cql_online_fake": (20000, -32.15, (11750, -1.73), 7250, 15.0, 0.6),
+    "sac_online_fake": (12000, -32.25, (11750, -1.79), 7750, 10.0, 0.5),
+}
+
+
+def _online_rows(name):
+    return [json.loads(line) for line in (ONLINE / f"{name}_metrics.jsonl").read_text().splitlines()]
+
+
+@pytest.mark.parametrize("name", list(ONLINE_RUNS))
+def test_the_online_runs_are_the_archived_recipe(name):
+    cfg = json.loads((ONLINE / f"{name}_config.json").read_text())
+    assert cfg["experiment_name"] == name and cfg["seed"] == 42 and "device" not in cfg
+    assert cfg["trainer"]["max_steps"] == ONLINE_RUNS[name][0] and cfg["trainer"]["steps_per_call"] == 1
+    assert cfg["datamodule"] == {"_target_": "tacorl_tpu.data.online_datamodule.OnlineRLDataModule",
+                                 "batch_size": 128, "steps_per_epoch": 250, "seed": 42}
+    module = cfg["module"]
+    assert (module["warm_start_steps"], module["discount"], module["actor_lr"]) == (500, 0.9, 1e-3)
+    assert module["policy"]["hidden_dim"] == module["q_network"]["hidden_dim"] == 64
+    assert cfg["env"]["tcp_shaping_weight"] == 1.0 and cfg["callbacks"]["rollout"]["num_rollouts"] == 10
+    online_cql = name == "cql_online_fake"
+    assert module["_target_"].endswith("CQLOnlineModule" if online_cql else "SACModule")
+    assert module.get("with_lagrange", False) == online_cql
+    if online_cql:
+        assert (module["conservative_weight"], module["n_action_samples"]) == (0.3, 4)
+
+
+@pytest.mark.parametrize("name", list(ONLINE_RUNS))
+def test_the_online_runs_meet_the_jax_bars(name):
+    _, first_want, best_want, first_one, bar_return, bar_acc = ONLINE_RUNS[name]
+    rows = _online_rows(name)
+    evals = [(r["step"], r["val_episode_return"], r["val_accuracy"]) for r in rows if "val_accuracy" in r]
+    assert len(evals) == ONLINE_RUNS[name][0] // 250
+    assert evals[0][1] == pytest.approx(first_want, abs=5e-3) and evals[0][2] == 0.0
+    step, best, _ = max(evals, key=lambda e: e[1])
+    assert (step, round(best, 2)) == best_want
+    assert min(s for s, _, a in evals if a == 1.0) == first_one
+    assert best >= evals[0][1] + bar_return and max(a for _, _, a in evals) >= bar_acc
+    gaps = [r for r in rows if "train/conservative_q1_gap" in r]
+    alphas = [r["train/alpha_prime"] for r in rows if "train/alpha_prime" in r]
+    if name == "cql_online_fake":  # the penalty was live the whole run
+        assert len(gaps) == 400 and len(alphas) == 400 and alphas[-1] < 1e-3 < alphas[0]
+        assert [a for _, _, a in evals[-4:]] == [0.7, 0.9, 0.9, 0.9]  # the archive: 1.0 x 4
+    else:
+        assert not gaps and not alphas
+
+
+def test_the_online_readme_names_the_card_and_the_walls():
+    readme = (ONLINE / "README.md").read_text()
+    assert CARD in readme and (ONLINE / "card.txt").read_text().strip() == CARD
+    assert (ONLINE / "time" / "card.txt").read_text().strip() == CARD
+    walls = dict(line.split() for line in (ONLINE / "walls.txt").read_text().splitlines())
+    assert set(walls) == {"cql_online_fake", "sac_online_fake"}
+    assert all(f"{float(v):.1f}" in readme for v in walls.values())
+    kept = json.loads((ONLINE / "cql_online_fake_kept_checkpoints.json").read_text())
+    assert list(kept) == ["11750", "18500", "20000"]

@@ -93,6 +93,13 @@ def probe():
         "tacorl_tpu_torch.modules.ril",
         "tacorl_tpu_torch.modules.cem",
         "tacorl_tpu_torch.evaluate_ril_oracle",
+        "tacorl_tpu_torch.utils.geometry",
+        "tacorl_tpu_torch.envs.calvin",
+        "tacorl_tpu_torch.envs.vec_env",
+        "tacorl_tpu_torch.data.replay_buffer",
+        "tacorl_tpu_torch.data.online_datamodule",
+        "tacorl_tpu_torch.modules.sac",
+        "tacorl_tpu_torch.modules.cql_online",
     ],
 )
 def test_probe_imported_every_module(probe, name):
@@ -135,6 +142,10 @@ def _ril_cfg():
             "low_level_policy": {"num_layers": 1, "hidden_dim": 8}}
 
 
+def _online_cfg():
+    return {"state_based": True, "state_dim": 6, "goal_dim": 3, "warm_start_steps": 2}
+
+
 def _cql_cfg():
     import chip_smoke
 
@@ -150,7 +161,8 @@ def _cql_cfg():
      "load_module_from_checkpoint", "LatentPlanAgent", "TACORLAgent", "FlatPolicyAgent",
      "make_agent", "evaluate.main", "Trainer", "train.main", "DevicePut", "PlayLMPD4RLModule",
      "TACORLD4RLModule", "LatentPlanD4RLAgent", "TACORLD4RLAgent", "make_d4rl_agent",
-     "evaluate_d4rl.main", "RILModule", "RILAgent", "OracleSubgoalAgent", "evaluate_ril_oracle.main"],
+     "evaluate_d4rl.main", "RILModule", "RILAgent", "OracleSubgoalAgent", "evaluate_ril_oracle.main",
+     "SACModule", "CQLOnlineModule", "train.main online"],
 )
 def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     _no_cuda()
@@ -161,8 +173,10 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     from tacorl_tpu_torch.data.transforms import DeviceTransforms
     from tacorl_tpu_torch.evaluation import agents
     from tacorl_tpu_torch.modules.cql import CQLModule
+    from tacorl_tpu_torch.modules.cql_online import CQLOnlineModule
     from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
     from tacorl_tpu_torch.modules.ril import RILModule
+    from tacorl_tpu_torch.modules.sac import SACModule
     from tacorl_tpu_torch.modules.tacorl import TACORLModule
     from tacorl_tpu_torch.utils import resolve_device
 
@@ -206,6 +220,9 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "OracleSubgoalAgent": lambda: agents.OracleSubgoalAgent(RILModule(_ril_cfg()), None, None),
         "evaluate_ril_oracle.main": lambda: evaluate_ril_oracle.main(
             [f"module_path={tmp_path}", f"data_dir={tmp_path}"]),
+        "SACModule": lambda: SACModule(_online_cfg()),
+        "CQLOnlineModule": lambda: CQLOnlineModule(_online_cfg()),
+        "train.main online": lambda: train.main(["experiment=cql_online_fake", f"run_dir={tmp_path / 'online'}"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()

@@ -34,7 +34,8 @@ CONFIGS = REPO / "configs"
     "experiment",
     ["play_lmp_for_rl", "tacorl", "play_lmp_fake", "cql_fake", "cql_fake_state", "tacorl_fake",
      "play_lmp_d4rl", "tacorl_d4rl", "cql_d4rl", "play_lmp_d4rl_fake", "tacorl_d4rl_fake",
-     "ril", "ril_fake", "ril_fake_state"],
+     "ril", "ril_fake", "ril_fake_state", "sac_online", "sac_online_fake", "cql_online",
+     "cql_online_fake"],
 )
 def test_compose_matches_jax_on_train_yaml(experiment):
     overrides = [f"experiment={experiment}", "data_dir=/data", "play_lmp_dir=/runs/lmp",
