@@ -84,7 +84,8 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 within rtol 1e-4 (a wrong or late prefetched batch shows).
  16. train      stage 1 through ``tacorl_tpu_torch.train.main`` (the command
                 ``python -m tacorl_tpu_torch.train``), experiment=
-                play_lmp_for_rl at its composed width, on a synthetic CALVIN
+                play_lmp_for_rl at its composed width with the linear KL
+                schedule over epochs 0-2 (kl_beta 0, then 5e-4), on a synthetic CALVIN
                 set of 200x200 frames packed by the port (12 steps of 64
                 windows per epoch): 2 epochs, a val pass and a checkpoint
                 per epoch, ckpt_max_to_keep=2. Prints ms/step and steps/s
@@ -190,6 +191,26 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 visual runs and 0 on the vector runs; the kernel against its
                 plain version on the run's own frames at N=1 and N=256
                 (bf16, atol 8e-3) and its time at N=1 beside its bytes bound.
+ 31. train_scan  trainer.steps_per_call > 1 as CUDA-graph replays of the
+                train step, each run held against the eager run of the same
+                seed and batches (the runs of phases 16, 18, 24, 27 and 30):
+                stage 1 (phase 16's run, whose linear KL schedule moves
+                kl_beta at each epoch) and stage 2 (phase 18's) at K=4 for 2
+                epochs of 12 steps: every row within rtol 1e-4, the
+                parameters at step 24 within atol 2.5 lr a step; graph
+                captures and replays; kernel 1's launches counted in the
+                device trace of the run's own replays of steps 5-12 (8 and
+                16: 1 and 2 a step; no eager launch in that span); kernel
+                1 against its plain version on the graphed run's own frames
+                (bf16, atol 8e-3); ms/step over steps 17-24 beside the eager
+                run's; busy share; host waits of a logging and a non-logging
+                chunk (sync debug mode); peak memory beside the eager run's.
+                Then stage 1 at K=5 (2 chunks and a dropped chunk of 2 an
+                epoch, logged) against an eager run of its first 10 steps;
+                experiment=cql_fake (against an eager epoch made here), ril,
+                play_lmp_d4rl and tacorl_d4rl at K=4 for one epoch; and
+                sac_online_fake at K=4, which trains one step a call (its
+                train step plays an env step) with no graph.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -198,6 +219,8 @@ It imports nothing of JAX and nothing of the JAX package.
 import contextlib
 import copy
 import json
+import logging
+import math
 import re
 import shutil
 import statistics
@@ -1498,6 +1521,23 @@ TRAIN_KEYS = ("rgb_static", "robot_obs", "scene_obs", "rel_actions_world")
 TRAIN_STEPS, TRAIN_LOG_EVERY, RESUME_STEPS = 24, 4, 6
 PROFILE_FROM, PROFILE_STEPS = 2, 10  # steps 3-12 under torch.profiler
 TIMED_FROM, TIMED_TO = 13, 22  # the second epoch's steps 14-22, between syncs
+# stage 1's KL warm-up moved into the run: kl_beta 0, 5e-4, 1e-3 in epochs 0-2
+LMP_KL = ("callbacks/kl_schedule=linear", "callbacks.kl_schedule.start_epoch=0",
+          "callbacks.kl_schedule.end_epoch=2")
+
+# the eager (steps_per_call=1) runs of the train phases that phase train_scan
+# repeats at K > 1: experiment -> args, run dir, final parameters and step, ms/step
+REFERENCES = {}
+
+
+def _remember(experiment: str, args: list, trainer, probe) -> None:
+    REFERENCES[experiment] = {
+        "args": list(args),
+        "run_dir": str(trainer.ckpt.dir),
+        "params": {k: v.detach().cpu().clone() for k, v in trainer.state.net.state_dict().items()},
+        "step": trainer.global_step,
+        "ms": probe.ms_per_step() if TIMED_TO in probe.times else None,
+    }
 # step 23 is a non-logging step and step 24 a logging one (sync debug mode)
 
 
@@ -1843,13 +1883,12 @@ def phase_train(card: str, data_dir: str, run_dir: str, bare_ms: float):
 
     probe = _TrainProbe()
     jitter_normalize.launches = 0
+    args = _train_args("play_lmp_for_rl", data_dir, run_dir, TRAIN_STEPS, "ckpt_max_to_keep=2", *LMP_KL)
     t0 = time.perf_counter()
-    trainer = train.main(
-        _train_args("play_lmp_for_rl", data_dir, run_dir, TRAIN_STEPS, "ckpt_max_to_keep=2"),
-        callbacks=[probe],
-    )
+    trainer = train.main(args, callbacks=[probe])
     wall = time.perf_counter() - t0
     launches = jitter_normalize.launches
+    _remember("play_lmp_for_rl", args, trainer, probe)
     _check(trainer.global_step == TRAIN_STEPS and len(probe.epoch_steps) == 2, f"train: {probe.epoch_steps}")
     _check(launches == TRAIN_STEPS, f"train: jitter_normalize launched {launches} times in {TRAIN_STEPS} steps")
     kept = trainer.ckpt.all_steps()
@@ -1871,7 +1910,8 @@ def phase_train_resume(card: str, data_dir: str, run_dir: str) -> None:
     before = _metrics_rows(run_dir)
     probe = _TrainProbe(measure=False)
     trainer = train.main(
-        _train_args("play_lmp_for_rl", data_dir, run_dir, TRAIN_STEPS + RESUME_STEPS, "ckpt_max_to_keep=2"),
+        _train_args("play_lmp_for_rl", data_dir, run_dir, TRAIN_STEPS + RESUME_STEPS, "ckpt_max_to_keep=2",
+                    *LMP_KL),
         callbacks=[probe],
     )
     rows = _metrics_rows(run_dir)
@@ -1902,13 +1942,12 @@ def phase_train_tacorl(card: str, data_dir: str, lmp_dir: str, run_dir: str, bar
 
     probe = _TrainProbe()
     jitter_normalize.launches = 0
+    args = _train_args("tacorl", data_dir, run_dir, TRAIN_STEPS, f"play_lmp_dir={lmp_dir}")
     t0 = time.perf_counter()
-    trainer = train.main(
-        _train_args("tacorl", data_dir, run_dir, TRAIN_STEPS, f"play_lmp_dir={lmp_dir}"),
-        callbacks=[probe],
-    )
+    trainer = train.main(args, callbacks=[probe])
     wall = time.perf_counter() - t0
     launches = jitter_normalize.launches
+    _remember("tacorl", args, trainer, probe)
     ds = trainer.datamodule.train_dataset
     _check(ds.include_goal and set(ds.goal_strategy_prob) == {"geometric", "similar_robot_obs"},
            f"train_tacorl: goal strategies {getattr(ds, 'goal_strategy_prob', None)}")
@@ -2365,13 +2404,12 @@ def phase_train_d4rl(card: str, root: str) -> tuple:
     lines = []
     for experiment, extra in runs.items():
         probe = _TrainProbe()
+        args = [f"experiment={experiment}", f"dataset_path={npz}", f"run_dir={root}/{experiment}",
+                f"trainer.max_steps={TRAIN_STEPS}", f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}", *extra]
         t0 = time.perf_counter()
-        trainer = train.main(
-            [f"experiment={experiment}", f"dataset_path={npz}", f"run_dir={root}/{experiment}",
-             f"trainer.max_steps={TRAIN_STEPS}", f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}", *extra],
-            callbacks=[probe],
-        )
+        trainer = train.main(args, callbacks=[probe])
         wall = time.perf_counter() - t0
+        _remember(experiment, args, trainer, probe)
         module = probe.module
         after = trainer.state.net.state_dict()
 
@@ -2649,10 +2687,11 @@ def phase_train_ril(card: str, train_data: str, flat_data: str, flat_pct: float,
     launches = {}
     probe = _TrainProbe()
     jitter_normalize.launches = shift_jitter_normalize.launches = 0
+    args = _train_args("ril", train_data, f"{root}/ril", TRAIN_STEPS, f"datamodule.train_percentage={pct}")
     t0 = time.perf_counter()
-    trainer = train.main(_train_args("ril", train_data, f"{root}/ril", TRAIN_STEPS,
-                                     f"datamodule.train_percentage={pct}"), callbacks=[probe])
+    trainer = train.main(args, callbacks=[probe])
     wall = time.perf_counter() - t0
+    _remember("ril", args, trainer, probe)
     launches["ril"] = {"jitter_normalize": jitter_normalize.launches,
                        "shift_jitter_normalize": shift_jitter_normalize.launches}
     _check(type(trainer.callbacks[0]).__name__ == "IncreaseHorizonLinear", "train_ril: callbacks")
@@ -3001,14 +3040,13 @@ def phase_train_online(card: str, root: str) -> tuple:
         visual = experiment in ONLINE_VISUAL
         probe = _OnlineProbe()
         jitter_normalize.launches = shift_jitter_normalize.launches = 0
+        args = [f"experiment={experiment}", f"run_dir={root}/{experiment}", f"trainer.max_steps={TRAIN_STEPS}",
+                f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}", "datamodule.steps_per_epoch=12"]
         with _timed_populate() as pop:
             t0 = time.perf_counter()
-            trainer = train.main(
-                [f"experiment={experiment}", f"run_dir={root}/{experiment}", f"trainer.max_steps={TRAIN_STEPS}",
-                 f"trainer.log_every_n_steps={TRAIN_LOG_EVERY}", "datamodule.steps_per_epoch=12"],
-                callbacks=[probe],
-            )
+            trainer = train.main(args, callbacks=[probe])
             wall = time.perf_counter() - t0
+        _remember(experiment, args, trainer, probe)
         tag = f"train_online/{experiment}"
         launches[experiment] = {"jitter_normalize": jitter_normalize.launches,
                                 "shift_jitter_normalize": shift_jitter_normalize.launches}
@@ -3085,6 +3123,363 @@ def phase_train_online(card: str, root: str) -> tuple:
     return launches, kernel
 
 
+# -- phase train_scan: K-step dispatch as CUDA-graph replays ----------------------------
+
+SCAN_K = 4  # 12 batches an epoch: 3 chunks
+SCAN_LOG_EVERY = 8  # chunks ending at 8 and 24 log, 12 and 20 do not
+SCAN_WAITS = (4, 8, 12)  # sync debug over chunk 5-8 (logs) and 9-12 (does not), epoch 1
+SCAN_TIMED = (16, 24)  # steps 17-24 of epoch 2, a sync at both ends, nothing else on
+SCAN_TRACED = (4, 12)  # the run's replays of steps 5-12 (chunks 2 and 3) under torch.profiler
+SCAN_REPLAYS = 4  # replays of the captured step after the run, timed with CUDA events
+SCAN_DROP_K = 5  # 12 batches an epoch: 2 chunks of 5 and a dropped chunk of 2
+SCAN_OTHERS = ("ril", "play_lmp_d4rl", "tacorl_d4rl")
+
+
+class _Capturable(Callback):
+    """Puts the optimizer in the mode the step graph runs it in
+    (``capturable=True``: bias corrections on the device), so an eager
+    reference computes the graphed run's Adam arithmetic."""
+
+    def on_fit_start(self, trainer, module):
+        from tacorl_tpu_torch.core.optimizers import set_capturable
+
+        set_capturable(trainer.state.optimizer, True)
+
+
+class _ScanProbe(Callback):
+    """Measures a run at the steps its callbacks see (chunk ends): the host
+    clock over SCAN_TIMED, host waits under torch's sync debug mode over
+    the chunks between SCAN_WAITS, kl_beta at each epoch start, the net's
+    weights at ``snapshot_at`` and, with ``trace``, the device trace of the
+    steps in SCAN_TRACED (torch.profiler, started before the first wait
+    window opens and stopped after the last one closes) with the wrapper's
+    own launch count over the same steps."""
+
+    def __init__(self, snapshot_at=(), trace=False):
+        self.snapshot_at = set(snapshot_at)
+        self.chunks, self.times, self.syncs, self.snapshots, self.kl_betas = [], {}, {}, {}, []
+        self.warn = self.prof = None
+        self.trace = trace
+
+    def on_epoch_start(self, trainer, module, epoch):
+        self.kl_betas.append(module.step_scalars().get("kl_beta"))
+
+    def on_train_batch_end(self, trainer, module, metrics, step):
+        import warnings
+
+        self.chunks.append(step)
+        if step in self.snapshot_at:
+            self.snapshots[step] = {k: v.detach().cpu().clone() for k, v in trainer.state.net.state_dict().items()}
+        if step in SCAN_TIMED:
+            torch.cuda.synchronize()
+            self.times[step] = time.perf_counter()
+        if step in SCAN_WAITS[1:]:
+            torch.cuda.set_sync_debug_mode("default")
+            self.warn.__exit__(None, None, None)
+            sites = [f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}" for w in self._caught
+                     if SYNC_WARNING in str(w.message)]
+            self.syncs[step] = {site: sites.count(site) for site in dict.fromkeys(sites)}
+        if self.trace and step == SCAN_TRACED[1]:
+            self.prof.__exit__(None, None, None)
+            self.eager_launches = jitter_normalize.launches - self.eager_launches
+        if self.trace and step == SCAN_TRACED[0]:
+            from torch.profiler import ProfilerActivity, profile
+
+            torch.cuda.synchronize()
+            self.eager_launches = jitter_normalize.launches
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+        if step in SCAN_WAITS[:-1]:
+            self.warn = warnings.catch_warnings(record=True)
+            self._caught = self.warn.__enter__()
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+
+    def ms_per_step(self) -> float:
+        return (self.times[SCAN_TIMED[1]] - self.times[SCAN_TIMED[0]]) * 1e3 / (SCAN_TIMED[1] - SCAN_TIMED[0])
+
+
+class _Lines(logging.Handler):
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines = []
+
+    def emit(self, record):
+        self.lines.append(record.getMessage())
+
+
+@contextlib.contextmanager
+def _logged():
+    """The port's INFO log lines while the block runs."""
+    handler, log = _Lines(), logging.getLogger("tacorl_tpu_torch")
+    level = log.level
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        yield handler.lines
+    finally:
+        log.removeHandler(handler)
+        log.setLevel(level)
+
+
+def _rerun_args(ref: dict, run_dir: str, k: int, *extra) -> list:
+    """A train phase's arguments in another run directory at K = k."""
+    return [a for a in ref["args"] if not a.startswith("run_dir=")] + [
+        f"run_dir={run_dir}", f"trainer.steps_per_call={k}", *extra]
+
+
+def _hold_rows(tag: str, got_dir: str, want_dir: str, upto: float = math.inf, rtol: float = 1e-4) -> tuple:
+    """Every train and validation row of the graphed run up to step
+    ``upto`` against the eager run's row of the same step and keys; returns
+    (rows held, largest relative difference)."""
+    def kind(row):
+        return tuple(sorted(k for k in row if k not in ("step", "time")))
+
+    want = {(r["step"], kind(r)): r for r in _metrics_rows(want_dir)}
+    held, worst = 0, 0.0
+    for row in _metrics_rows(got_dir):
+        if row["step"] > upto or not any(k.startswith(("train/", "validation/")) for k in row):
+            continue
+        ref = want.get((row["step"], kind(row)))
+        _check(ref is not None, f"{tag}: the eager run logged no row like step {row['step']}'s")
+        for k in kind(row):
+            err = abs(row[k] - ref[k]) / max(abs(ref[k]), 1e-6)
+            worst = max(worst, err)
+            _check(err <= rtol, f"{tag} {k} at step {row['step']}: graphed {row[k]} vs eager {ref[k]}")
+        held += 1
+    _check(held > 0, f"{tag}: no row to hold")
+    return held, worst
+
+
+def _hold_params(tag: str, got: dict, want: dict, lr: float, steps: int) -> float:
+    """Parameters against the eager run's at the same step, atol 2.5 lr a
+    step; returns the largest difference."""
+    worst = 0.0
+    for k, w in want.items():
+        d = float((got[k].float().cpu() - w.float().cpu()).abs().max()) if w.numel() else 0.0
+        worst = max(worst, d)
+        _check(d <= 2.5 * lr * steps, f"{tag}: {k} differs by {d} (atol {2.5 * lr * steps})")
+    return worst
+
+
+def _params(trainer) -> dict:
+    return {k: v.detach().cpu().clone() for k, v in trainer.state.net.state_dict().items()}
+
+
+def _max_lr(module_cfg: dict) -> float:
+    return max(float(v) for k, v in module_cfg.items() if k == "lr" or k.endswith("_lr"))
+
+
+def _scan_pair(tag: str, args: list, run_dir: str, k: int, *extra, probe=None) -> dict:
+    """An eager run (K = 1, the optimizer as the graph runs it) and a graphed
+    run (K = k) of the same arguments, seed and batches: every row within
+    rtol 1e-4, the final parameters within atol 2.5 lr a step. Returns the
+    graphed trainer, its probe and both runs' numbers."""
+    from tacorl_tpu_torch import train
+
+    ref = {"args": args}
+    eager_probe = _ScanProbe() if probe is not None else None
+    torch.cuda.reset_peak_memory_stats()
+    eager = train.main(_rerun_args(ref, f"{run_dir}_eager", 1, *extra),
+                       callbacks=[_Capturable()] + ([eager_probe] if eager_probe else []))
+    out = {"eager_peak": torch.cuda.max_memory_allocated(), "eager_step": eager.global_step,
+           "eager_params": _params(eager), "eager_ms": eager_probe.ms_per_step() if eager_probe else None}
+    _check(eager.step_graph is None, f"{tag}: the eager run has a step graph")
+    del eager
+    torch.cuda.empty_cache()
+    jitter_normalize.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _logged() as lines:
+        trainer = train.main(_rerun_args(ref, run_dir, k, *extra), callbacks=[probe] if probe else [])
+    out.update(wall=time.perf_counter() - t0, peak=torch.cuda.max_memory_allocated(), trainer=trainer,
+               lines=lines, wrapper_launches=jitter_normalize.launches)
+    graph = trainer.step_graph
+    _check(graph is not None and trainer.device.type == "cuda", f"{tag}: no step graph")
+    _check(graph.captures == 1 and graph.replays == trainer.global_step,
+           f"{tag}: {graph.captures} captures, {graph.replays} replays in {trainer.global_step} steps")
+    out["rows"], out["row_err"] = _hold_rows(tag, run_dir, f"{run_dir}_eager")
+    out["lr"] = _max_lr(graph.module.cfg)
+    if trainer.global_step == out["eager_step"]:
+        out["param_err"] = _hold_params(tag, _params(trainer), out["eager_params"], out["lr"], trainer.global_step)
+    return out
+
+
+def _scan_kernel_check(tag: str, trainer, leaves) -> float:
+    """jitter_normalize against its plain version on the graphed run's own
+    frames: the step graph's static batch (the last replayed step's),
+    resized and shifted to 128x128 bf16 with the transform's ranges."""
+    cfg = trainer.step_graph.module.transforms.cfg["rgb_static"]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    pad, size = int(cfg["pad"]), tuple(cfg["size"])
+    worst = 0.0
+    for leaf in leaves:
+        frames = trainer.step_graph.batch[leaf]["rgb_static"]
+        frames = frames.reshape((-1,) + tuple(frames.shape[-3:])).movedim(-1, -3).contiguous()
+        n = frames.shape[0]
+        shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device="cuda")
+        x = image_aug.resize_shift(frames, shifts, size, pad, dtype=torch.bfloat16).contiguous()
+        f = sample_jitter_factors(n, g, brightness=cfg["brightness"], contrast=cfg["contrast"],
+                                  hue=cfg["hue"], prob=cfg["jitter_prob"])
+        worst = max(worst, _compare(jitter_normalize(x, f), jitter_normalize_reference(x, f), BF16_ATOL,
+                                    f"{tag}: jitter_normalize vs plain on the graphed run's {leaf} frames"))
+    return worst
+
+
+def _traced_steps(probe) -> dict:
+    """The device trace of the run's own replays of the steps in SCAN_TRACED:
+    kernels, copies and device ms a step and kernel 1's launches in all."""
+    from torch.autograd import DeviceType
+
+    steps = SCAN_TRACED[1] - SCAN_TRACED[0]
+    events = probe.prof.key_averages()
+    kernels, copies, device_ms = _kernel_counts(events, steps)
+    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+    jitter = sum(e.count for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
+                 and "jitter_normalize_kernel" in e.key and "shift_" not in e.key)
+    return {"steps": steps, "kernels": kernels, "copies": copies, "device_ms": device_ms, "jitter": jitter}
+
+
+def _replay_ms(graph) -> float:
+    """Device ms of one replay of the captured step, over SCAN_REPLAYS
+    replays after the run (CUDA events)."""
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(SCAN_REPLAYS):
+        graph.graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / SCAN_REPLAYS
+
+
+def _scan_stage(card: str, experiment: str, root: str, leaves, launches_per_step: int) -> dict:
+    """One stage at K = 4 for its phase's 2 epochs of 12 steps against an
+    eager run of the same seed and batches, then the measurements."""
+    ref = REFERENCES[experiment]
+    tag = f"train_scan/{experiment}"
+    probe = _ScanProbe(trace=True)
+    out = _scan_pair(tag, ref["args"], f"{root}/scan_{experiment}", SCAN_K,
+                     f"trainer.log_every_n_steps={SCAN_LOG_EVERY}", probe=probe)
+    trainer = out["trainer"]
+    wrapper_count = out["wrapper_launches"]
+    _check(probe.chunks == list(range(SCAN_K, trainer.global_step + 1, SCAN_K)), f"{tag}: chunks {probe.chunks}")
+    default_err = _hold_params(f"{tag} vs the default eager run", _params(trainer), ref["params"], out["lr"],
+                               ref["step"])
+    kernel_err = _scan_kernel_check(tag, trainer, leaves)
+    traced = _traced_steps(probe)
+    _check(probe.eager_launches == 0, f"{tag}: {probe.eager_launches} eager launches in the traced steps")
+    _check(traced["jitter"] == launches_per_step * traced["steps"],
+           f"{tag}: {traced['jitter']} jitter_normalize launches in the trace of {traced['steps']} replays")
+    replay_ms = _replay_ms(trainer.step_graph)
+    waits = {step: sum(probe.syncs[step].values()) for step in SCAN_WAITS[1:]}
+    ms = probe.ms_per_step()
+    graph = trainer.step_graph
+    print(
+        f"[{tag}] K={SCAN_K}: {graph.captures} capture, {graph.replays} replays in {len(probe.chunks)} chunks"
+        + (f", kl_beta at the epoch starts {probe.kl_betas}" if probe.kl_betas[0] is not None else "")
+        + f" | against an eager run of the same seed and batches "
+        f"(its Adam capturable, as the graph's): {out['rows']} rows within rtol 1e-4 (largest "
+        f"{out['row_err']:.3g}), parameters at step {trainer.global_step} within {out['param_err']:.3g}; against "
+        f"phase 16/18's eager run (Adam as the eager path runs it): parameters within {default_err:.3g} (atol "
+        f"2.5 lr a step = {2.5 * out['lr'] * ref['step']:.3g}) | jitter_normalize {traced['jitter']} launches "
+        f"in the device trace of the run's replays of steps {SCAN_TRACED[0] + 1}-{SCAN_TRACED[1]} (the wrapper "
+        f"counted 0 there, and {wrapper_count} in the whole run, none of them a replay's), vs "
+        f"plain on the graphed run's frames max abs err {kernel_err:.3g} (atol {BF16_ATOL}) | {card}",
+        flush=True,
+    )
+    print(
+        f"[{tag}] {ms:.3f} ms/step ({1e3 / ms:.2f} steps/s) over steps {SCAN_TIMED[0] + 1}-{SCAN_TIMED[1]}, the "
+        f"eager run {out['eager_ms']:.3f} ms/step over the same steps (phase {16 if experiment == 'play_lmp_for_rl' else 18}: "
+        f"{ref['ms']:.3f} over steps {TIMED_FROM + 1}-{TIMED_TO}) | a replay of the step: {replay_ms:.3f} "
+        f"ms on the device after the run; in the trace of steps {SCAN_TRACED[0] + 1}-{SCAN_TRACED[1]} a step "
+        f"ran {traced['kernels']:.0f} kernels and {traced['copies']:.1f} copies, {traced['device_ms']:.3f} device "
+        f"ms; busy {replay_ms / ms:.1%} of the trained step (a replay's device ms over the step's ms; idle "
+        f"{1 - replay_ms / ms:.1%}) | "
+        f"host waits a logging / non-logging chunk of {SCAN_K} steps {waits[SCAN_WAITS[1]]} / "
+        f"{waits[SCAN_WAITS[2]]}, at: {_sites(probe.syncs[SCAN_WAITS[1]])} / {_sites(probe.syncs[SCAN_WAITS[2]])} "
+        f"| peak memory {out['peak'] / 2**30:.2f} GiB graphed, {out['eager_peak'] / 2**30:.2f} GiB eager | "
+        f"train.main {out['wall']:.1f} s | {card}",
+        flush=True,
+    )
+    result = {"ms": ms, "eager_ms": out["eager_ms"], "launches": traced["jitter"], "kernel_err": kernel_err}
+    del trainer, out
+    torch.cuda.empty_cache()
+    return result
+
+
+def _scan_drop(card: str, root: str) -> None:
+    """Stage 1 at K = 5 for 2 epochs: 12 batches an epoch make 2 chunks and
+    a dropped chunk of 2, logged each epoch; held against an eager run of
+    the first 10 steps (rows up to step 10, parameters at step 10)."""
+    from tacorl_tpu_torch import train
+
+    ref = REFERENCES["play_lmp_for_rl"]
+    tag = "train_scan/drop"
+    log_every = f"trainer.log_every_n_steps={SCAN_DROP_K}"
+    eager = train.main(_rerun_args(ref, f"{root}/drop_eager", 1, "trainer.max_steps=10", log_every),
+                       callbacks=[_Capturable()])
+    eager_params = _params(eager)
+    del eager
+    probe = _ScanProbe(snapshot_at=(10,))
+    with _logged() as lines:
+        trainer = train.main(_rerun_args(ref, f"{root}/drop", SCAN_DROP_K, "trainer.max_steps=1000",
+                                         "trainer.max_epochs=2", log_every), callbacks=[probe])
+    drops = [m for m in lines if m.startswith("scanned dispatch dropped a trailing partial chunk of 2/5")]
+    _check(trainer.global_step == 20 and probe.chunks == [5, 10, 15, 20] and len(drops) == 2,
+           f"{tag}: {trainer.global_step} steps, chunks {probe.chunks}, {len(drops)} drops logged")
+    _check(trainer.step_graph.captures == 1 and trainer.step_graph.replays == 20, f"{tag}: replays")
+    rows, row_err = _hold_rows(tag, f"{root}/drop", f"{root}/drop_eager", upto=10)
+    param_err = _hold_params(tag, probe.snapshots[10], eager_params, _max_lr(trainer.step_graph.module.cfg), 10)
+    print(f"[{tag}] K={SCAN_DROP_K}: {trainer.global_step} steps in 2 epochs of 12 batches, chunks ending at "
+          f"{probe.chunks}, the trailing chunk of 2 dropped and logged {len(drops)} times | against an eager run "
+          f"of steps 1-10: {rows} rows within rtol 1e-4 (largest {row_err:.3g}), parameters at step 10 within "
+          f"{param_err:.3g} | {card}", flush=True)
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def phase_train_scan(card: str, root: str, flat_data: str, flat_pct: float) -> dict:
+    """trainer.steps_per_call > 1 as CUDA-graph replays of the train step,
+    each run held against an eager run of the same seed and batches:
+    stage 1 (experiment=play_lmp_for_rl, phase 16's arguments) and stage 2
+    (experiment=tacorl grafted from it, phase 18's) at K = 4, with the
+    measurements; stage 1 at K = 5 (a dropped chunk); experiment=cql_fake
+    (visual), ril, play_lmp_d4rl and tacorl_d4rl at K = 4 for one epoch;
+    sac_online_fake at K = 4 trains one step a call."""
+    from tacorl_tpu_torch import train
+
+    t0 = time.perf_counter()
+    out = {"play_lmp_for_rl": _scan_stage(card, "play_lmp_for_rl", root, ("states",), 1),
+           "tacorl": _scan_stage(card, "tacorl", root, ("states", "goal"), 2)}
+    _scan_drop(card, root)
+    print(f"[train_scan] stages 1 and 2 and the dropped chunk took {time.perf_counter() - t0:.1f} s", flush=True)
+    others = {"cql_fake": _train_args("cql_fake", flat_data, "", 12, f"datamodule.train_percentage={flat_pct}",
+                                      *FLAT_ARGS)}
+    others.update({e: REFERENCES[e]["args"] for e in SCAN_OTHERS})
+    lines = []
+    for experiment, args in others.items():
+        pair = _scan_pair(f"train_scan/{experiment}", args, f"{root}/scan_{experiment}", SCAN_K,
+                          "trainer.max_steps=12")
+        _check(pair["trainer"].global_step == 12, f"train_scan/{experiment}: {pair['trainer'].global_step} steps")
+        lines.append(f"{experiment}: {pair['rows']} rows (largest {pair['row_err']:.3g}), parameters within "
+                     f"{pair['param_err']:.3g}, {pair['wall']:.1f} s")
+        del pair
+        torch.cuda.empty_cache()
+    print(f"[train_scan] K={SCAN_K}, one epoch of 12 steps, 1 capture and 12 replays each, against an eager run "
+          f"of the same seed and batches: {'; '.join(lines)} | {card}", flush=True)
+    ref = REFERENCES["sac_online_fake"]
+    online = train.main(_rerun_args(ref, f"{root}/scan_sac_online_fake", SCAN_K))
+    _check(online.step_graph is None and online.global_step == ref["step"], "train_scan/sac_online_fake: graphed")
+    held, err = _hold_rows("train_scan/sac_online_fake", f"{root}/scan_sac_online_fake", ref["run_dir"])
+    print(f"[train_scan/sac_online_fake] steps_per_call={SCAN_K}: one step a call (SAC steps the env inside "
+          f"its train step), no step graph, {online.global_step} steps; {held} rows equal to phase 30's K=1 run "
+          f"within {err:.3g} | the phase took {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    del online
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3114,7 +3509,8 @@ def main() -> int:
     del trained
     torch.cuda.empty_cache()
     phase_reference_train()
-    # the runs of phases 16-22 stay until phase 28 scores them
+    # the runs of phases 16-30 stay until phase 28 scores them and phase 31
+    # repeats them at K > 1
     with tempfile.TemporaryDirectory() as tmp:
         train_data = _train_data(tmp)
         launches_train = phase_train(card, train_data, f"{tmp}/lmp", step_ms)
@@ -3127,15 +3523,16 @@ def main() -> int:
         launches_cql = phase_train_cql(card, flat_data, pct, f"{tmp}/cql")
         launches_cql_state = phase_train_cql_state(card, flat_data, pct, f"{tmp}/cql_state")
         phase_reference_d4rl()
-        with tempfile.TemporaryDirectory() as tmp2:
-            launches_d4rl, d4rl_runs = phase_train_d4rl(card, tmp2)
-            rollout_d4rl = phase_rollout_d4rl(card, d4rl_runs)
+        Path(f"{tmp}/d4rl").mkdir()
+        launches_d4rl, d4rl_runs = phase_train_d4rl(card, f"{tmp}/d4rl")
+        rollout_d4rl = phase_rollout_d4rl(card, d4rl_runs)
         phase_reference_ril()
         launches_ril = phase_train_ril(card, train_data, flat_data, pct, tmp)
         rollout_ril = phase_rollout_ril(card, flat_data, tmp)
-    phase_reference_online()
-    with tempfile.TemporaryDirectory() as tmp:
-        launches_online, online_kernel = phase_train_online(card, tmp)
+        phase_reference_online()
+        launches_online, online_kernel = phase_train_online(card, f"{tmp}/online")
+        # the eager runs of phases 16, 18, 24, 27 and 30 are the references
+        scan = phase_train_scan(card, f"{tmp}/scan", flat_data, pct)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -3147,7 +3544,11 @@ def main() -> int:
         "train_ril_state": launches_ril["ril_fake_state"]["jitter_normalize"],
         "rollout_ril": rollout_ril["jitter_normalize"],
         **{f"train_online/{e}": n["jitter_normalize"] for e, n in launches_online.items()},
+        # counted in the device trace of the run's own graph replays of steps 5-12
+        **{f"train_scan/{e}/steps_{SCAN_TRACED[0] + 1}-{SCAN_TRACED[1]}": v["launches"]
+           for e, v in scan.items()},
     }
+    kernel["max_abs_err_train_scan"] = max(v["kernel_err"] for v in scan.values())
     first = online_kernel[ONLINE_VISUAL[0]]
     kernel.update(
         max_abs_err_online_n256=max(k[256] for k in online_kernel.values()),

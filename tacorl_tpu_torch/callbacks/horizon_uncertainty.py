@@ -10,7 +10,13 @@ per-batch std stays on the device; the epoch end copies them to the host
 once. The current horizon rides in the trainer's callback state
 (``callbacks_state.json``), so a resumed run continues the curriculum.
 
-Requires critics built with ``q_network.with_dropout: true``."""
+Requires critics built with ``q_network.with_dropout: true``.
+
+Under the trainer's K-step dispatch the callback runs once a chunk, on the
+stacked (K, B, ...) chunk, as the JAX callback does: on vector observations
+the std is taken over the whole chunk. On image observations the JAX
+callback fails (its conv encoder rejects the 5-d frames), so the port
+raises ``NotImplementedError(CHUNK_FAULT)`` (ROADMAP Queue 3)."""
 
 from __future__ import annotations
 
@@ -20,8 +26,16 @@ import torch
 from torch import Tensor
 
 from tacorl_tpu_torch.callbacks.base import Callback
+from tacorl_tpu_torch.data.loader import flatten
 
-__all__ = ["IncreaseHorizonUncertainty"]
+__all__ = ["CHUNK_FAULT", "IncreaseHorizonUncertainty"]
+
+CHUNK_FAULT = (
+    "the uncertainty-gated horizon on a K-step chunk of image observations is not "
+    "ported: the JAX callback evaluates the stacked (K, B, ...) chunk and its conv "
+    "encoder rejects the 5-d frames (TypeError), so it cannot run either; train "
+    "with trainer.steps_per_call=1 or vector observations (ROADMAP Queue 3)"
+)
 
 
 class IncreaseHorizonUncertainty(Callback):
@@ -70,6 +84,8 @@ class IncreaseHorizonUncertainty(Callback):
         batch = getattr(trainer, "_current_batch", None)
         if batch is None or not self._active(trainer):
             return
+        if _stacked_images(batch):
+            raise NotImplementedError(CHUNK_FAULT)
         self._stds.append(self.mc_std(module, trainer.state.net, batch, generator=module.generator))
 
     def on_epoch_end(self, trainer, module, epoch: int) -> None:
@@ -104,3 +120,11 @@ class IncreaseHorizonUncertainty(Callback):
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         if "current_horizon" in state:
             self._restored_horizon = int(state["current_horizon"])
+
+
+def _stacked_images(batch) -> bool:
+    """A stacked chunk ((K, B, A) actions) with image observations
+    ((K, B, H, W, C) frames)."""
+    return len(batch["actions"].shape) == 3 and any(
+        len(x.shape) >= 5 for _, x in flatten(batch["observations"])
+    )

@@ -11,10 +11,14 @@ port's own format:
 Retention is the JAX package's: at most ``max_to_keep`` saves, the latest
 always kept, the rest the best by ``monitor`` (``mode`` max or min). A save
 without the metric scores NaN, which ranks last in max mode and, as in the
-JAX package, first in min mode (ROADMAP Queue 3). The JAX package's
-param-tree surgery (``graft``, ``freeze_mask``) has no counterpart here:
-the port grafts with ``load_state_dict`` and freezes with
-``requires_grad_`` (``modules/tacorl.py``).
+JAX package, first in min mode (ROADMAP Queue 3).
+
+Param-tree surgery (``graft``, ``freeze_mask``, the JAX package's) works on
+the port's state_dict layout: flat dicts of dotted keys, where a prefix
+names a sub-tree (``"actor.goal_encoder"`` is JAX's
+``"actor/goal_encoder"``). The port's modules graft with
+``load_state_dict`` and freeze with ``requires_grad_``
+(``modules/tacorl.py``); these are library functions.
 """
 
 from __future__ import annotations
@@ -29,7 +33,7 @@ import torch
 
 from tacorl_tpu_torch.config import get_class, merge
 
-__all__ = ["CheckpointManager", "load_module_from_checkpoint"]
+__all__ = ["CheckpointManager", "freeze_mask", "graft", "load_module_from_checkpoint"]
 
 
 class CheckpointManager:
@@ -157,3 +161,40 @@ def load_module_from_checkpoint(
     cls = get_class(module_cfg["_target_"])
     module = cls(dict(module_cfg), full_config=cfg, device=device)
     return module, module.restore_state(manager, step=step)
+
+
+# -- param-tree surgery --------------------------------------------------------------
+
+
+def _subtree(state: Dict[str, Any], prefix: str) -> Dict[str, Any]:
+    """The entries under ``prefix`` keyed by the rest of their key (the
+    prefix itself, a leaf, as "")."""
+    return {
+        k[len(prefix) + 1:]: v for k, v in state.items() if k == prefix or k.startswith(prefix + ".")
+    }
+
+
+def graft(target: Dict[str, Any], source: Dict[str, Any], mapping: Dict[str, str]) -> Dict[str, Any]:
+    """A copy of ``target`` with source sub-trees copied in. ``mapping``:
+    target prefix -> source prefix. A missing prefix raises KeyError; two
+    sub-trees of other keys, or a tensor of another rank, raise ValueError,
+    as the JAX package's structure check does."""
+    out = {k: v.clone() if torch.is_tensor(v) else v for k, v in target.items()}
+    for dst, src in mapping.items():
+        sub, ref = _subtree(source, src), _subtree(out, dst)
+        if not sub:
+            raise KeyError(src)
+        if not ref:
+            raise KeyError(dst)
+        if set(sub) != set(ref) or any(sub[k].dim() != ref[k].dim() for k in ref):
+            raise ValueError(f"graft structure mismatch at {dst!r} <- {src!r}")
+        for k, v in sub.items():
+            out[f"{dst}.{k}" if k else dst] = v.clone()
+    return out
+
+
+def freeze_mask(params: Dict[str, Any], frozen_prefixes: List[str]) -> Dict[str, bool]:
+    """Key -> trainable: False under any frozen prefix, else True."""
+    return {
+        k: not any(k == p or k.startswith(p + ".") for p in frozen_prefixes) for k in params
+    }

@@ -6,6 +6,11 @@ defaults (b1 0.9, b2 0.999, eps 1e-8), optionally behind global-norm
 clipping, ``optax.chain(optax.clip_by_global_norm(c), optax.adam(lr))``.
 A group steps on the gradients it is handed, so a loss reaches only the
 group its gradients were taken for.
+
+``set_capturable`` switches any of the port's optimizers between the eager
+mode and ``capturable=True``, the mode a CUDA graph of the train step needs
+(``core/graphs.py``): the step counts move to the device, and the bias
+corrections are computed there.
 """
 
 from __future__ import annotations
@@ -16,7 +21,7 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import Tensor
 
-__all__ = ["GroupOptimizer", "clip_by_global_norm", "global_norm"]
+__all__ = ["GroupOptimizer", "clip_by_global_norm", "global_norm", "set_capturable", "torch_optimizers"]
 
 
 def global_norm(tensors: Sequence[Tensor]) -> Tensor:
@@ -76,3 +81,28 @@ class GroupOptimizer:
     def load_state_dict(self, state: Dict[str, dict]) -> None:
         for name, g in self.groups.items():
             g.optimizer.load_state_dict(state[name])
+
+
+def torch_optimizers(optimizer) -> List[torch.optim.Optimizer]:
+    """The torch optimizers of a train state's ``optimizer``: itself, or a
+    ``GroupOptimizer``'s one per group."""
+    if isinstance(optimizer, GroupOptimizer):
+        return [g.optimizer for g in optimizer.groups.values()]
+    return [optimizer]
+
+
+def set_capturable(optimizer, capturable: bool) -> None:
+    """Every param group's ``capturable`` flag, with each step count moved
+    where that mode keeps it: a float32 device tensor beside its parameter,
+    or a CPU tensor. A state dict of either mode loads into the other: call
+    this after loading it."""
+    for opt in torch_optimizers(optimizer):
+        for group in opt.param_groups:
+            group["capturable"] = capturable
+        for p, state in opt.state.items():
+            step = state.get("step")
+            if torch.is_tensor(step):
+                state["step"] = (
+                    step.to(device=p.device, dtype=torch.float32) if capturable
+                    else torch.tensor(float(step), dtype=torch.float32)
+                )

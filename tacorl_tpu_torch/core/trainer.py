@@ -22,18 +22,29 @@ What the JAX trainer does, the port does the same way:
     callback state beside the checkpoints keyed by class name (the legacy
     positional list format still loads).
 
+K-step dispatch (``steps_per_call = K > 1``), as the JAX trainer does it:
+a module that ``supports_scan`` runs K steps a call through
+``make_scanned_train_step`` (on a card, K replays of the step's CUDA graph;
+on the CPU, the eager step K times); K is clamped to the epoch's batch
+count; K host batches make one chunk (a trailing partial chunk is dropped
+and logged), stacked to (K, B, ...) leaves on the device; ``step_scalars``
+is read once a chunk; ``global_step`` advances by K; the logging condition
+is unchanged, so a chunk logs its last step's metrics when the step it ends
+on is a multiple of ``log_every_n_steps``; ``on_train_batch_end`` (which
+gets the stacked chunk as ``_current_batch``) and the stop check run once a
+chunk, so ``max_steps`` may be overshot by up to K - 1. Online modules
+(``supports_scan = False``) train one step at a time under any K.
+
 Randomness: the JAX train step folds its key with ``state.step``, so a
 resumed run draws what an uninterrupted one draws. The port gets the same:
 before each train step the module's ``torch.Generator`` and the device's
 default generator (which dropout draws from) are seeded from
-``(seed, global_step)``, before each validation batch from
+``(seed, global_step)`` (``core/graphs.py:seed_generators``; step i of a
+chunk from ``(seed, global_step + i)``), before each validation batch from
 ``(seed + 1, i)``. An optional ``draw_source(split, index)`` ("train" with
 the global step, "validation" with the batch index) returns extra keyword
 arguments for that call of the step, e.g. the JAX key chain's draws in the
 parity tests.
-
-Not ported: ``steps_per_call > 1`` (the JAX package's scanned K-step
-dispatch; a K-step CUDA graph is ROADMAP Queue 1, item 6) raises.
 """
 
 from __future__ import annotations
@@ -48,7 +59,9 @@ import torch
 from torch.profiler import record_function
 
 from tacorl_tpu_torch.core.checkpoint import CheckpointManager
+from tacorl_tpu_torch.core.graphs import seed_generators, step_seed
 from tacorl_tpu_torch.core.logging import MetricsSink
+from tacorl_tpu_torch.core.optimizers import set_capturable
 from tacorl_tpu_torch.data.loader import DevicePut, device_prefetch
 from tacorl_tpu_torch.utils import resolve_device
 
@@ -59,9 +72,23 @@ __all__ = ["Trainer", "step_seed"]
 DrawSource = Callable[[str, int], Optional[Dict[str, Any]]]
 
 
-def step_seed(seed: int, index: int) -> int:
-    """A 63-bit generator seed from (seed, index)."""
-    return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0] >> 1)
+def _chunks(batch_iter, k: int):
+    """Group K per-step batches into one list (``DevicePut`` stacks it to
+    (K, B, ...) leaves); a trailing partial chunk is dropped and logged,
+    as the JAX trainer's ``_stack_chunks`` does."""
+    chunk = []
+    for batch in batch_iter:
+        chunk.append(batch)
+        if len(chunk) == k:
+            yield chunk
+            chunk = []
+    if chunk:
+        logger.info(
+            "scanned dispatch dropped a trailing partial chunk of %d/%d "
+            "batches this epoch",
+            len(chunk),
+            k,
+        )
 
 
 def _host_floats(metrics: Dict[str, Any]) -> Dict[str, float]:
@@ -90,11 +117,6 @@ class Trainer:
         steps_per_call: int = 1,
         draw_source: Optional[DrawSource] = None,
     ):
-        if steps_per_call != 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (scanned multi-step dispatch) is not ported yet "
-                "(ROADMAP Queue 1, item 6)"
-            )
         self.device = resolve_device(device)
         self.max_epochs = max_epochs
         self.max_steps = max_steps
@@ -107,6 +129,7 @@ class Trainer:
         self.ckpt_every_n_epochs = ckpt_every_n_epochs
         self.prefetch_to_device = prefetch_to_device
         self.log_every_n_steps = log_every_n_steps
+        self.steps_per_call = steps_per_call
         self.draw_source = draw_source
         self.global_step = 0
         self.epoch = 0
@@ -114,6 +137,9 @@ class Trainer:
         self.state = None
         self._last_val_metrics: Dict[str, float] = {}
         self._current_batch = None
+        # the StepGraph of a K-step run on a card (captures, replays and
+        # static inputs), else None
+        self.step_graph = None
         # host-side measurements: ms the training thread waited for each
         # batch (loader + copy enqueue), and each checkpoint save's
         # (step, bytes, ms)
@@ -128,17 +154,6 @@ class Trainer:
 
     def _should_stop(self) -> bool:
         return self.max_steps is not None and self.global_step >= self.max_steps
-
-    def _seed(self, module, seed: int, index: int) -> None:
-        """Seed the module's generator and the device's default generator
-        from (seed, index)."""
-        s = step_seed(seed, index)
-        if getattr(module, "generator", None) is not None:
-            module.generator.manual_seed(s)
-        if self.device.type == "cuda":
-            torch.cuda.default_generators[self.device.index or torch.cuda.current_device()].manual_seed(s)
-        else:
-            torch.default_generator.manual_seed(s)
 
     def _draws(self, split: str, index: int) -> Dict[str, Any]:
         if self.draw_source is None:
@@ -174,7 +189,21 @@ class Trainer:
                 # on by that draw, so an online run draws and drops it too
                 next(iter(train_loader))
             self.state = module.init_state(self.seed)
-        train_step = module.make_train_step()
+        use_scan = self.steps_per_call > 1 and getattr(module, "supports_scan", False)
+        if use_scan:
+            # never more steps a call than an epoch gives (partial chunks are
+            # dropped; a larger K would silently train nothing)
+            self.steps_per_call = max(1, min(self.steps_per_call, len(train_loader)))
+            use_scan = self.steps_per_call > 1
+        if use_scan:
+            train_step = module.make_scanned_train_step()
+            self.step_graph = train_step.graph
+        else:
+            train_step = module.make_train_step()
+        if self.step_graph is None:
+            # a checkpoint of a graphed run loads in capturable mode; the
+            # step graph puts the optimizer in that mode when it captures
+            set_capturable(self.state.optimizer, False)
         val_step = module.make_val_step()
         put = DevicePut(self.device)
 
@@ -189,7 +218,8 @@ class Trainer:
             t_epoch = time.time()
             n_batches = 0
             host_batches = iter(train_loader)
-            batches = device_prefetch(host_batches, put, self.prefetch_to_device)
+            chunks = _chunks(host_batches, self.steps_per_call) if use_scan else host_batches
+            batches = device_prefetch(chunks, put, self.prefetch_to_device)
             while True:
                 t0 = time.perf_counter()
                 with record_function("trainer/next_batch"):
@@ -198,14 +228,23 @@ class Trainer:
                     break
                 self.batch_wait_ms.append((time.perf_counter() - t0) * 1e3)
                 self._current_batch = batch  # callbacks may probe it
-                self._seed(module, self.seed, self.global_step)
-                draws = self._draws("train", self.global_step)
-                with record_function("trainer/train_step"):
-                    self.state, metrics = train_step(
-                        self.state, batch, module.step_scalars(), **draws
-                    )
-                self.global_step += 1
-                n_batches += 1
+                if use_scan:
+                    with record_function("trainer/train_step"):
+                        self.state, metrics = train_step(
+                            self.state, batch, module.step_scalars(), seed=self.seed,
+                            draw_source=self.draw_source,
+                        )
+                    step_inc = self.steps_per_call
+                else:
+                    seed_generators(module, self.device, self.seed, self.global_step)
+                    draws = self._draws("train", self.global_step)
+                    with record_function("trainer/train_step"):
+                        self.state, metrics = train_step(
+                            self.state, batch, module.step_scalars(), **draws
+                        )
+                    step_inc = 1
+                self.global_step += step_inc
+                n_batches += step_inc
                 if self.global_step % self.log_every_n_steps == 0:
                     with record_function("trainer/log"):
                         self.sink.log(_host_floats(metrics), self.global_step, prefix="train")
@@ -216,7 +255,10 @@ class Trainer:
             host_batches.close()  # a stop mid-epoch cancels the loader's queued batches
             logger.info("epoch %d: %d steps in %.1fs", epoch, n_batches, time.time() - t_epoch)
             if n_batches == 0:
-                raise RuntimeError("epoch produced zero train steps: empty dataset")
+                raise RuntimeError(
+                    "epoch produced zero train steps: empty dataset or "
+                    "steps_per_call larger than the epoch"
+                )
 
             if (epoch + 1) % self.val_every_n_epochs == 0:
                 self.validate(module, datamodule, val_step)
@@ -304,7 +346,7 @@ class Trainer:
             for i, batch in enumerate(self._loader(val_loader)):
                 if self.limit_val_batches is not None and i >= self.limit_val_batches:
                     break
-                self._seed(module, self.seed + 1, i)
+                seed_generators(module, self.device, self.seed + 1, i)
                 metrics, out = val_step(
                     self.state, put.ready(put(batch)), module.step_scalars(),
                     **self._draws("validation", i),

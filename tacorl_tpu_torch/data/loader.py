@@ -16,7 +16,10 @@ next host batch while the current one computes. ``DevicePut`` is the
 makes the consumer's current stream wait for that event and marks each
 tensor with ``record_stream``, so the caching allocator does not reuse its
 memory while the consumer's kernels may still read it. On the CPU it is
-``torch.as_tensor`` of each leaf.
+``torch.as_tensor`` of each leaf. A list of K batches (a chunk of the
+trainer's K-step dispatch) is put as one batch whose leaves are stacked
+(K, B, ...): on a card each batch is copied into its slice of the stacked
+device tensor, so nothing is stacked on the host.
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import collections
 import queue
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Callable, Dict, Iterator, Sequence, Union
+from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,6 +43,32 @@ def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
     if isinstance(tree, dict):
         return {k: tree_map(fn, v) for k, v in tree.items()}
     return fn(tree)
+
+
+def flatten(tree: Any, path: Tuple = ()) -> List[Tuple[Tuple, Any]]:
+    """The (path, leaf) pairs of a nested dict, in key order."""
+    if isinstance(tree, dict):
+        return [pair for k, v in tree.items() for pair in flatten(v, path + (k,))]
+    return [(path, tree)]
+
+
+def unflatten(pairs) -> Any:
+    """The nested dict of (path, leaf) pairs; an empty path is the root."""
+    out: Dict = {}
+    for path, leaf in pairs:
+        if not path:
+            return leaf
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return out
+
+
+def _stack(fn: Callable[[list], Any], trees: Sequence[Any]) -> Any:
+    """``fn`` over the list of matching leaves of trees of one structure."""
+    flat = [flatten(t) for t in trees]
+    return unflatten([(path, fn([f[i][1] for f in flat])) for i, (path, _) in enumerate(flat[0])])
 
 
 def collate(items: Sequence[Dict]) -> Dict:
@@ -203,12 +232,31 @@ class DevicePut:
         self.stream = torch.cuda.Stream(self.device) if self.device.type == "cuda" else None
 
     def __call__(self, batch: Any) -> Any:
+        if isinstance(batch, list):
+            return self._put_chunk(batch)
         if self.stream is None:
             return tree_map(torch.as_tensor, batch)
         with torch.cuda.stream(self.stream):
             tree = tree_map(
                 lambda x: torch.as_tensor(x).to(self.device, non_blocking=True), batch
             )
+            event = torch.cuda.Event()
+            event.record(self.stream)
+        return _OnDevice(tree, event)
+
+    def _put_chunk(self, batches: list) -> Any:
+        if self.stream is None:
+            return _stack(lambda xs: torch.stack([torch.as_tensor(x) for x in xs]), batches)
+
+        def put(xs):
+            first = torch.as_tensor(xs[0])
+            out = torch.empty((len(xs),) + tuple(first.shape), dtype=first.dtype, device=self.device)
+            for i, x in enumerate(xs):
+                out[i].copy_(torch.as_tensor(x), non_blocking=True)
+            return out
+
+        with torch.cuda.stream(self.stream):
+            tree = _stack(put, batches)
             event = torch.cuda.Event()
             event.record(self.stream)
         return _OnDevice(tree, event)

@@ -79,7 +79,7 @@ from tacorl_tpu_torch.config import get_class
 from tacorl_tpu_torch.core.optimizers import GroupOptimizer
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.data.transforms import DeviceTransforms
-from tacorl_tpu_torch.modules.base import AlgorithmModule
+from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.critic import Critic, dropout_keep_mask
 from tacorl_tpu_torch.networks.goal_encoder import VisualGoalEncoder
@@ -250,8 +250,7 @@ class CQLModule(AlgorithmModule):
         critics; move everything to the device, seed the generator and make
         one Adam per group."""
         net = self.net
-        with torch.random.fork_rng(devices=[]):
-            torch.default_generator.manual_seed(seed)
+        with seeded_init(seed, self.device):
             self._init_parameters()
         with torch.no_grad():
             net.log_alpha.zero_()
@@ -329,10 +328,7 @@ class CQLModule(AlgorithmModule):
         # ---- 2. actor loss with the new alpha and the same sample; the
         # critics' gradient reaches the actor through the actions only
         with record_function("cql/actor"):
-            bc_phase = scalars.get("bc_phase", 0.0)
-            if not torch.is_tensor(bc_phase):
-                # filled on the device: a host value copied in would sync the stream
-                bc_phase = torch.full((), float(bc_phase), device=self.device)
+            bc_phase = step_scalar(scalars.get("bc_phase", 0.0))
             q1_emb = net.q1.get_emb_representation(obs)
             q2_emb = net.q2.get_emb_representation(obs)
             q_pi = torch.minimum(

@@ -33,7 +33,7 @@ from tacorl_tpu_torch.core.distributions import (
 )
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.data.transforms import DeviceTransforms
-from tacorl_tpu_torch.modules.base import AlgorithmModule
+from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.late_fusion import LateFusion, build_late_fusion
 from tacorl_tpu_torch.networks.layers import reset_parameters
@@ -144,7 +144,7 @@ class PlayLMPNet(nn.Module):
         self,
         states: Dict[str, Tensor],
         actions: Tensor,
-        kl_beta: float,
+        kl_beta: float | Tensor,
         eps: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
         sample_pp: bool = False,
@@ -325,8 +325,7 @@ class PlayLMPModule(AlgorithmModule):
         """Initialize the parameters from ``seed`` (each layer's JAX-package
         init), move them to the device, seed the module's generator and
         make the Adam optimizer (optax.adam's defaults)."""
-        with torch.random.fork_rng(devices=[]):
-            torch.default_generator.manual_seed(seed)
+        with seeded_init(seed, self.device):
             reset_parameters(self.net)
         self.net.to(self.device)
         self.generator.manual_seed(seed)
@@ -363,7 +362,7 @@ class PlayLMPModule(AlgorithmModule):
             state.optimizer.zero_grad(set_to_none=True)
             with record_function("play_lmp/loss"):
                 total, metrics, _ = net.compute_loss(
-                    states, actions, float(scalars["kl_beta"]), eps=eps, generator=generator
+                    states, actions, step_scalar(scalars["kl_beta"]), eps=eps, generator=generator
                 )
             with record_function("play_lmp/backward"):
                 total.backward()
@@ -403,7 +402,7 @@ class PlayLMPModule(AlgorithmModule):
                 states = transforms(batch["states"], train=False)
                 actions = torch.as_tensor(batch["actions"]).to(device, torch.float32)
                 _, metrics, sampled_plan_pp = net.compute_loss(
-                    states, actions, float(scalars["kl_beta"]), eps=eps,
+                    states, actions, step_scalar(scalars["kl_beta"]), eps=eps,
                     generator=generator, sample_pp=True, pp_eps=pp_eps,
                 )
             outputs = {"sampled_plan_pp": sampled_plan_pp, "idx": batch["idx"]}

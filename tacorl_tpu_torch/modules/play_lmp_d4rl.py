@@ -31,7 +31,7 @@ from torch.profiler import record_function
 
 from tacorl_tpu_torch.config import get_class
 from tacorl_tpu_torch.core.train_state import TrainState
-from tacorl_tpu_torch.modules.base import AlgorithmModule
+from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPNet
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.layers import reset_parameters
@@ -74,7 +74,7 @@ class PlayLMPD4RLNet(nn.Module):
         self,
         observations: Tensor,
         actions: Tensor,
-        kl_beta: float,
+        kl_beta: float | Tensor,
         eps: Optional[Tensor] = None,
         random_plan: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
@@ -206,8 +206,7 @@ class PlayLMPD4RLModule(AlgorithmModule):
         """Initialize the parameters from ``seed`` (each layer's JAX-package
         init), move them to the device, seed the module's generator and
         make the Adam optimizer (optax.adam's defaults)."""
-        with torch.random.fork_rng(devices=[]):
-            torch.default_generator.manual_seed(seed)
+        with seeded_init(seed, self.device):
             reset_parameters(self.net)
         self.net.to(self.device)
         self.generator.manual_seed(seed)
@@ -240,7 +239,7 @@ class PlayLMPD4RLModule(AlgorithmModule):
             state.optimizer.zero_grad(set_to_none=True)
             with record_function("play_lmp_d4rl/loss"):
                 total, metrics, _ = net.compute_loss(
-                    obs, actions, float(scalars["kl_beta"]), eps=eps, random_plan=random_plan,
+                    obs, actions, step_scalar(scalars["kl_beta"]), eps=eps, random_plan=random_plan,
                     generator=generator,
                 )
             with record_function("play_lmp_d4rl/backward"):
@@ -272,7 +271,7 @@ class PlayLMPD4RLModule(AlgorithmModule):
             with torch.no_grad():
                 obs, actions = self._inputs(batch)
                 _, metrics, sampled_plan_pp = net.compute_loss(
-                    obs, actions, float(scalars["kl_beta"]), eps=eps, random_plan=random_plan,
+                    obs, actions, step_scalar(scalars["kl_beta"]), eps=eps, random_plan=random_plan,
                     generator=generator, sample_pp=True, pp_eps=pp_eps,
                 )
             return metrics, {"sampled_plan_pp": sampled_plan_pp, "idx": batch["idx"]}

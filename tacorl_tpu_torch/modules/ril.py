@@ -31,7 +31,7 @@ from torch.profiler import record_function
 from tacorl_tpu_torch.config import get_class
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.data.transforms import DeviceTransforms
-from tacorl_tpu_torch.modules.base import AlgorithmModule
+from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.goal_encoder import VisualGoalEncoder
 from tacorl_tpu_torch.networks.late_fusion import LateFusion, build_late_fusion
@@ -193,8 +193,7 @@ class RILModule(AlgorithmModule):
         """Initialize the parameters from ``seed`` (each layer's JAX-package
         init), move them to the device, seed the module's generator and
         make one Adam over everything (optax.adam's defaults)."""
-        with torch.random.fork_rng(devices=[]):
-            torch.default_generator.manual_seed(seed)
+        with seeded_init(seed, self.device):
             reset_parameters(self.net)
         self.net.to(self.device)
         self.generator.manual_seed(seed)

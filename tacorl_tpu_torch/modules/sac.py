@@ -45,6 +45,9 @@ __all__ = ["SACModule"]
 class SACModule(CQLModule):
     name = "sac"
     use_conservative = False
+    # the train step plays an env step on the host: the trainer runs it one
+    # step at a time under any steps_per_call, as the JAX trainer does
+    supports_scan = False
 
     def build(self) -> None:
         cfg = self.cfg

@@ -16,6 +16,8 @@ The run goes on the card; ``+device=cpu`` runs it on the CPU (the shared
 configs have no ``device`` key, so it is added). A config's ``platform:``
 key (the fake experiments set ``platform: cpu``) picks a JAX backend in
 scripts/train.py and is ignored here: it never moves the port to the CPU.
+``trainer.steps_per_call`` sets the trainer's K-step dispatch (on the card,
+CUDA-graph replays of the train step; ``core/trainer.py``).
 ``multihost=true`` raises (data-parallel training is ROADMAP Queue 1,
 item 16).
 """

@@ -355,13 +355,22 @@ def test_platform_key_does_not_pick_the_cpu(tmp_path):
     "override, error, match",
     [
         ("+multihost=true", NotImplementedError, "item 16"),
-        ("trainer.steps_per_call=4", NotImplementedError, "item 6"),
     ],
 )
 def test_unported_options_raise(calvin, tmp_path, override, error, match):
     with pytest.raises(error, match=match):
         train.main(TINY + ["experiment=play_lmp_for_rl", f"data_dir={calvin}",
                            f"run_dir={tmp_path}", override])
+
+
+def test_steps_per_call_composes_and_trains(calvin, tmp_path):
+    """trainer.steps_per_call=4 reaches the trainer: an epoch of 4 batches is
+    one chunk of 4 steps, logged at its last step."""
+    trainer = train.main(TINY + ["experiment=play_lmp_for_rl", f"data_dir={calvin}",
+                                 f"run_dir={tmp_path}", "trainer.steps_per_call=4", "trainer.max_steps=8"])
+    assert trainer.steps_per_call == 4 and trainer.global_step == trainer.state.step == 8
+    assert [r["step"] for r in _rows(tmp_path) if "train/total_loss" in r] == [4, 8]
+    assert CheckpointManager(tmp_path).all_steps() == [4, 8]
 
 
 def test_train_command_runs(calvin, tmp_path):

@@ -335,8 +335,16 @@ def test_callback_state_loads_older_layouts(tmp_path, layout):
 
 
 def test_scanned_dispatch_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1, item 6"):
-        Trainer(steps_per_call=4, device="cpu")
+    """K-step dispatch is ported: the trainer takes any steps_per_call, and
+    only a module that steps an env inside its train step refuses to scan
+    (the trainer then runs it one step at a time, as the JAX trainer does)."""
+    from tacorl_tpu_torch.modules.sac import SACModule
+    from tests.test_torch_cql_flat import state_cfg
+
+    assert Trainer(steps_per_call=4, device="cpu").steps_per_call == 4
+    assert PlayLMPModule(_cfg(), device="cpu").make_scanned_train_step().graph is None
+    with pytest.raises(RuntimeError, match="SACModule interacts with the environment"):
+        SACModule(state_cfg(), device="cpu").make_scanned_train_step()
 
 
 def test_trainer_refuses_a_module_on_another_device():
