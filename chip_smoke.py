@@ -212,6 +212,47 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 sac_online_fake at K=4, which trains one step a call (its
                 train step plays an env step) with no graph.
 
+ 32. reference_variants  tiny float32 configs on the card and on the CPU from
+                the same weights, batch and draws: (a) a Play-LMP step with
+                the Gaussian LSTM decoder and the random-plan loss, (b) a
+                visual CQL step with a D2RL actor, DenseNet critics and VIB,
+                (c) train-mode forward and backward of each new encoder
+                (CustomEncoder, ResNetRLEncoder, DeepSpatialEncoder,
+                ResNet18Encoder, R3MEncoder, VectorEncoder) with its
+                BatchNorm running statistics: losses, gradient norms,
+                outputs and statistics within rtol 1e-4; (d) the
+                bf16_matmul ReLU-RNN decoder's forward and backward (the
+                recurrence's torch.mm with out_dtype=float32 and its own
+                backward on the card, the upcast product on the CPU): loss
+                and gradient norm within rtol 1e-4, the output and every
+                gradient as far from the float32 decoder's as the CPU's
+                bf16 path is, within 2e-2 of its scale; and the bf16
+                decoder in a tiny Play-LMP step, K=4 through StepGraph
+                against an eager twin with capturable Adam.
+ 33. slice_variants  at production widths: phase 7's step with
+                gaussian.yaml's decoder (2x2048 LSTM, 10 mixtures) and the
+                random-plan loss for 12 steps (finite losses, changed
+                parameters, one jitter_normalize launch a step), then a K=4
+                chunk through core/graphs.py:StepGraph against an eager
+                twin with capturable Adam (cuDNN's LSTM captured; kernel 1
+                counted in the device trace of the replays); experiment=
+                cql_fake's module with networks/policy=d2rl,
+                networks/q_network=densenet and VIB for 12 steps (4 launches
+                a step); depth_static (64, 16, 200, 200) through
+                DeviceTransforms to planar (..., 3, 128, 128), finite, in
+                [-1, 1], 0 launches; ms per forward+backward of each new
+                encoder at (1024, 3, 128, 128), DeepSpatialEncoder and
+                ResNet18Encoder in eval mode too.
+ 34. train_variants  train.main on the card for 200 steps each:
+                play_lmp_fake with networks/action_decoder=gaussian and
+                cql_fake with networks/policy=d2rl networks/q_network=
+                densenet (the rollout monitor and validation off, one save
+                at the stop): finite losses, the mean action (q1)
+                loss of the last 20 steps below the first 20's; then
+                ``tacorl_tpu_torch.evaluate.main`` on the Gaussian run's
+                checkpoint for 2 short-horizon rollouts (the LSTM carry
+                through a rollout).
+
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
 """
@@ -2060,7 +2101,7 @@ def _flat_draws(module, g, bs: int = FLAT_BATCH) -> dict:
              "next_n": actor(n, bs), "rand": torch.rand((bs * n, a), generator=g) * 2.0 - 1.0}
     if module.critic_dropout:
         q = module.net.q1.critic.Q
-        draws["dropout"] = {rows: torch.rand((rows, q.hidden_dim), generator=g) >= q.dropout_p
+        draws["dropout"] = {rows: torch.rand((rows, q.trunk_dim), generator=g) >= q.dropout_p
                             for rows in (bs, n * bs)}
     if any(c.get("kind") == "rgb" for m, c in module.transforms.cfg.items() if m in module.obs_modalities):
         draws["aug_obs"], draws["aug_next_obs"] = _aug_draws(module, g, bs), _aug_draws(module, g, bs)
@@ -3480,6 +3521,549 @@ def phase_train_scan(card: str, root: str, flat_data: str, flat_pct: float) -> d
     return out
 
 
+# -- the off-path networks and options: Gaussian decoder, D2RL/DenseNet, VIB, encoders, depth -----
+
+GAUSSIAN_DECODER = {  # configs/networks/action_decoder/gaussian.yaml
+    "_target_": "tacorl_tpu.networks.action_decoder.ActionDecoderGaussian", "n_mixtures": 10,
+    "num_layers": 2, "hidden_size": 2048, "out_features": 7, "policy_rnn_dropout_p": 0.0,
+    "rnn_model": "lstm_decoder", "include_goal": False, "discrete_gripper": False,
+}
+VARIANT_K = 4  # the graphed chunk of the Gaussian stage-1 step
+ENCODER_N, ENCODER_HW = 1024, 128  # batch 64 x window 16 at the transform's 128x128
+TRAIN_VARIANT_STEPS, TRAIN_VARIANT_WINDOW = 200, 20
+
+
+def _gaussian_cfg(cfg: dict, decoder: dict) -> dict:
+    cfg = copy.deepcopy(cfg)
+    cfg["action_decoder"] = dict(decoder)
+    cfg["add_random_plan_loss"] = True
+    return cfg
+
+
+def _lmp_variant_draws(module, g, b: int, t: int) -> dict:
+    """The Play-LMP step's ``draws`` from the CPU generator ``g``: the
+    uniform random plan and goal and both Gaussian decoder samples' Gumbel
+    noise and normals (the window less its goal frame)."""
+    dec = module.net.action_decoder
+    latent, goal = module.latent_plan_dim, module.net.goal_encoder.mlp[-1].out_features
+
+    def decoder():
+        u = torch.rand((b, t - 1, dec.n_mixtures), generator=g).clamp_min(torch.finfo(torch.float32).tiny)
+        return {"gumbel": -torch.log(-torch.log(u)), "eps": torch.randn((b, t - 1, dec.out_features), generator=g)}
+
+    return {"random_plan": torch.rand((b, latent), generator=g) * 2 - 1,
+            "random_goal": torch.rand((b, goal), generator=g) * 2 - 1,
+            "decoder": decoder(), "random_decoder": decoder()}
+
+
+def _tiny_cql_variant_cfg() -> dict:
+    """A tiny float32 visual CQL config with a D2RL actor, DenseNet critics
+    and the VIB regularizer on a vib: true critic encoder."""
+    enc = {"_target_": "tacorl_tpu.networks.encoders.LMPVisionEncoder", "latent_dim": 8, "hidden_dim": 16,
+           "compute_dtype": None}
+    return {
+        "action_dim": 7, "actor_lr": 1e-3, "critic_lr": 1e-3, "obs_modalities": ["rgb_static"],
+        "goal_modalities": ["rgb_static"], "actor_encoder": {"networks": {"rgb_static": enc}},
+        "critic_encoder": {"networks": {"rgb_static": {**enc, "vib": True}}}, "goal_encoder": {"hidden_size": 16},
+        "policy": {"_target_": "tacorl_tpu.networks.actor.D2RLPolicy", "num_layers": 2, "hidden_dim": 16,
+                   "discrete_gripper": True},
+        "q_network": {"_target_": "tacorl_tpu.networks.critic.DenseNetQNetwork", "num_layers": 2,
+                      "hidden_dim": 16},
+        "n_action_samples": 3, "with_lagrange": True, "with_vib": True, "vib_coefficient": 0.05,
+        "transforms": {"rgb_static": {"kind": "rgb", "size": [48, 48], "pad": 2}},
+    }
+
+
+def _vib_draws(module, g, bs: int) -> dict:
+    lat = module.net.q1.encoder.networks["rgb_static"].latent_dim
+    return {part: {"rgb_static": torch.randn((bs, lat), generator=g)} for part in ("observation", "goal")}
+
+
+def _grad_norms(state):
+    """Record each optimizer group's gradient norm as the CQL step hands
+    the gradients over."""
+    norms, step_group = {}, state.optimizer.step_group
+
+    def recording(name, grads):
+        norms[name] = float(torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads])))
+        return step_group(name, grads)
+
+    state.optimizer.step_group = recording
+    return norms
+
+
+def _variant_encoders(hw: int, dtype=None) -> dict:
+    """Each new encoder at its config defaults (float32 convolutions when
+    ``dtype`` is None), the input size its transform would give."""
+    from tacorl_tpu_torch.networks.encoders import CustomEncoder, DeepSpatialEncoder, ResNetRLEncoder
+    from tacorl_tpu_torch.networks.layers import TorchConv, resolve_dtype
+    from tacorl_tpu_torch.networks.resnet import R3MEncoder, ResNet18Encoder
+
+    cd = {"compute_dtype": dtype}
+    r3m = R3MEncoder()  # its backbone has no dtype option: set its convolutions'
+    r3m.backbone.apply(lambda m: setattr(m, "compute_dtype", resolve_dtype(dtype)) if isinstance(m, TorchConv) else None)
+    return {
+        "CustomEncoder": CustomEncoder(input_hw=(hw, hw), **cd),
+        "ResNetRLEncoder": ResNetRLEncoder(**cd),
+        "DeepSpatialEncoder": DeepSpatialEncoder(**cd),
+        "ResNet18Encoder": ResNet18Encoder(**cd),
+        "R3MEncoder": r3m,
+    }
+
+
+def phase_reference_variants() -> None:
+    """Tiny float32 configs on the card and on the CPU from the same
+    weights, batch and draws: (a) a Play-LMP step with the Gaussian LSTM
+    decoder and the random-plan loss, (b) a visual CQL step with a D2RL
+    actor, DenseNet critics and VIB, (c) forward and backward of each new
+    encoder in train mode with its BatchNorm running statistics; losses,
+    gradient norms, outputs and statistics within rtol 1e-4; (d) the
+    bf16_matmul decoder (``_reference_bf16_decoder``)."""
+    from tacorl_tpu_torch.networks.encoders import VectorEncoder
+
+    def close(tag, a, b):
+        _check(np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b) + 1e-6, f"reference_variants {tag}: cuda {a} vs cpu {b}")
+        return abs(a - b) / max(abs(b), 1e-6)
+
+    # (a) Play-LMP, Gaussian LSTM decoder, random-plan loss
+    cfg = _gaussian_cfg(_tiny_cfg(), {**GAUSSIAN_DECODER, "hidden_size": 32, "n_mixtures": 4})
+    batch, g = _batch(3, 5, 56, seed=2), torch.Generator().manual_seed(2)
+    aug = {"rgb_static": {"shifts": torch.randint(0, 5, (15, 2), generator=g), "factors": sample_jitter_factors(15, g)}}
+    eps, results, draws = torch.randn((3, 16), generator=g), {}, None
+    for device in ("cpu", "cuda"):
+        module = PlayLMPModule(cfg, device=device)
+        state = module.init_state(0)
+        draws = draws or _lmp_variant_draws(module, g, 3, 5)
+        _, m = module.make_train_step()(state, batch, aug_draws=_to_device(aug, device), eps=eps.to(device),
+                                        draws=_to_device(draws, device))
+        results[device] = {k: float(v) for k, v in m.items()}
+    worst_a = max(close(f"(a) {k}", results["cuda"][k], results["cpu"][k]) for k in results["cpu"]
+                  if k != "total_loss")
+    # the total is a difference of two near-equal action losses: rtol 1e-4 of those terms
+    scale = max(abs(results["cpu"]["action_loss"]), abs(results["cpu"]["random_plan_action_loss"]))
+    _check(abs(results["cuda"]["total_loss"] - results["cpu"]["total_loss"]) <= 1e-4 * scale,
+           f"reference_variants (a) total_loss: {results['cuda']['total_loss']} vs {results['cpu']['total_loss']}")
+    line_a = (f"(a) Play-LMP + Gaussian LSTM + random-plan loss: action_loss {results['cuda']['action_loss']:.6f} vs "
+              f"{results['cpu']['action_loss']:.6f}, random_plan_action_loss "
+              f"{results['cuda']['random_plan_action_loss']:.6f}, grad_norm {results['cuda']['grad_norm']:.6f} vs "
+              f"{results['cpu']['grad_norm']:.6f}, largest relative difference {worst_a:.3g}")
+
+    # (b) visual CQL: D2RL actor, DenseNet critics, VIB
+    cfg, results, norms, weights = _tiny_cql_variant_cfg(), {}, {}, None
+    for device in ("cpu", "cuda"):
+        module = CQLModule(cfg, device=device)
+        state = module.init_state(0)
+        if weights is None:
+            weights = {k: v.clone() for k, v in module.net.state_dict().items()}
+            rs = np.random.RandomState(4)
+            img = lambda: rs.randint(0, 256, (4, 48, 48, 3), dtype=np.uint8)  # noqa: E731
+            goal = img()
+            cql_batch = {"observations": {"observation": {"rgb_static": img()}, "goal": {"rgb_static": goal}},
+                         "next_observations": {"observation": {"rgb_static": img()}, "goal": {"rgb_static": goal}},
+                         "actions": rs.uniform(-1, 1, (4, 7)).astype(np.float32),
+                         "rewards": np.asarray([1, 0, 0, 0], np.float32), "terminals": np.asarray([1, 0, 0, 0], np.float32)}
+            g = torch.Generator().manual_seed(4)
+            cql_draws = {**_flat_draws(module, g, 4), "vib": _vib_draws(module, g, 4)}
+        module.net.load_state_dict(weights)
+        norms[device] = _grad_norms(state)
+        _, m = module.make_train_step()(state, cql_batch, {"bc_phase": 0.0}, draws=_to_device(cql_draws, device))
+        results[device] = {k: float(v) for k, v in m.items()}
+    _check({"q1_vib_loss", "q2_vib_loss"} <= set(results["cuda"]), "reference_variants (b): no VIB loss")
+    worst_b = max([close(f"(b) {k}", results["cuda"][k], results["cpu"][k]) for k in results["cpu"]]
+                  + [close(f"(b) {k} grad norm", norms["cuda"][k], norms["cpu"][k]) for k in norms["cpu"]])
+    line_b = (f"(b) CQL D2RL/DenseNet/VIB: {len(results['cpu'])} metrics and {len(norms['cpu'])} group grad norms, "
+              f"q1_vib_loss {results['cuda']['q1_vib_loss']:.6f} vs {results['cpu']['q1_vib_loss']:.6f}, largest "
+              f"relative difference {worst_b:.3g}")
+
+    # (c) each new encoder, train mode, forward and backward, running statistics
+    lines = []
+    x = torch.rand((4, 3, 64, 64), generator=torch.Generator().manual_seed(5)) * 2 - 1
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        encoders = {**_variant_encoders(64), "VectorEncoder": VectorEncoder(8, hidden=(16,), in_features=12)}
+    for name, enc in encoders.items():
+        inp = x if name != "VectorEncoder" else x[:, 0, 0, :12].contiguous()
+        out = {}
+        for device in ("cpu", "cuda"):
+            net = copy.deepcopy(enc).to(device).train()
+            y = net(inp.to(device))
+            w = torch.linspace(-1, 1, y.numel(), device=device).reshape(y.shape)
+            (y * w).sum().backward()
+            grads = [p.grad for p in net.parameters() if p.grad is not None]
+            out[device] = {
+                "y": y.detach().cpu(), "grad_norm": float(torch.linalg.vector_norm(torch.stack(
+                    [torch.linalg.vector_norm(gr) for gr in grads]))),
+                "stats": {k: v.cpu() for k, v in net.state_dict().items() if k.endswith(("running_mean", "running_var"))},
+            }
+        err = float((out["cuda"]["y"] - out["cpu"]["y"]).abs().max())
+        _check(err <= 1e-4 * max(float(out["cpu"]["y"].abs().max()), 1.0), f"reference_variants (c) {name}: output {err}")
+        close(f"(c) {name} grad norm", out["cuda"]["grad_norm"], out["cpu"]["grad_norm"])
+        stats = max([float((out["cuda"]["stats"][k] - v).abs().max()) for k, v in out["cpu"]["stats"].items()] or [0.0])
+        _check(stats <= 1e-4, f"reference_variants (c) {name}: running statistics differ by {stats}")
+        lines.append(f"{name} out {err:.2g}, stats {stats:.2g} ({len(out['cpu']['stats'])})")
+    line_d = _reference_bf16_decoder(close)
+    print("[reference_variants] tiny float32, cuda vs cpu from the same weights, batch and draws (rtol 1e-4): "
+          f"{line_a}; {line_b}; (c) train-mode forward+backward, largest abs diff: " + ", ".join(lines)
+          + f"; {line_d}", flush=True)
+
+
+def _reference_bf16_decoder(close) -> str:
+    """(d) the bf16_matmul ReLU-RNN decoder, forward and backward, on the
+    card (the recurrence's ``torch.mm(..., out_dtype=float32)`` and its
+    hand-written backward, cuBLAS's bf16 GEMMs) against the CPU (the bf16
+    operands upcast), from the same weights and batch: loss and gradient
+    norm within rtol 1e-4; the output and each gradient as far from the
+    float32 decoder's (bf16_matmul off, on the CPU) as the CPU's bf16 path
+    is, within 2e-2 of its scale. Two bf16 paths that sum in different
+    orders round the cotangents differently at each of the 16 steps, so
+    they differ elementwise by as much as each differs from float32."""
+    from tacorl_tpu_torch.networks.action_decoder import ActionDecoderLogistic
+
+    g = torch.Generator().manual_seed(6)
+    b, t = 8, 16
+    plan, emb = torch.randn((b, 16), generator=g), torch.randn((b, t, 32), generator=g)
+    actions = torch.rand((b, t, 7), generator=g) * 2 - 1
+    kw = dict(state_dim=32, latent_plan_dim=16, hidden_size=256, num_layers=2, n_mixtures=5)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(6)
+        dec = ActionDecoderLogistic(**kw, bf16_matmul=True)
+    f32 = ActionDecoderLogistic(**kw)
+    f32.load_state_dict(dec.state_dict())
+    out = {}
+    for tag, net, device in (("cpu", dec, "cpu"), ("cuda", dec, "cuda"), ("f32", f32, "cpu")):
+        net = copy.deepcopy(net).to(device)
+        means = net(plan.to(device), emb.to(device))[2]
+        loss = net.loss(plan.to(device), emb.to(device), actions.to(device))
+        loss.backward()
+        grads = {n: p.grad.cpu() for n, p in net.named_parameters() if p.grad is not None}
+        out[tag] = {"means": means.detach().cpu(), "loss": float(loss.detach()), "grads": grads, "grad_norm": float(
+            torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(gr) for gr in grads.values()])))}
+    _check(out["cuda"]["means"].dtype == torch.float32 and "rnn.weight_hh_l1" in out["cuda"]["grads"],
+           "reference_variants (d): no float32 output or no recurrent gradient")
+    worst = max(close("(d) bf16 decoder loss", out["cuda"]["loss"], out["cpu"]["loss"]),
+                close("(d) bf16 decoder grad norm", out["cuda"]["grad_norm"], out["cpu"]["grad_norm"]))
+    tensors = {tag: {"means": o["means"], **o["grads"]} for tag, o in out.items()}
+    rel = {}
+    for name, ref in tensors["f32"].items():
+        scale = max(float(ref.abs().max()), 1e-12)
+        card, cpu = ((tensors[k][name] - ref).abs().max() / scale for k in ("cuda", "cpu"))
+        diff = float((tensors["cuda"][name] - tensors["cpu"][name]).abs().max()) / scale
+        rel[name] = (float(card), float(cpu), diff)
+        _check(torch.isfinite(tensors["cuda"][name]).all() and card <= cpu + 2e-2,
+               f"reference_variants (d) bf16 decoder {name}: {float(card):.3g} of its scale from float32 on the "
+               f"card, {float(cpu):.3g} on the CPU")
+    name = max(rel, key=lambda k: rel[k][2])
+    graph = _bf16_decoder_graph()
+    return (f"(d) bf16_matmul ReLU-RNN decoder (2x256, batch {b} x {t}) forward+backward: loss "
+            f"{out['cuda']['loss']:.6f} vs {out['cpu']['loss']:.6f}, grad norm {out['cuda']['grad_norm']:.6f} vs "
+            f"{out['cpu']['grad_norm']:.6f}, largest relative difference {worst:.3g}; largest elementwise card-CPU "
+            f"difference {rel[name][2]:.3g} of its scale ({name}: {rel[name][0]:.3g} from float32 on the card, "
+            f"{rel[name][1]:.3g} on the CPU); largest distance from float32 on the card "
+            f"{max(v[0] for v in rel.values()):.3g}, on the CPU {max(v[1] for v in rel.values()):.3g}; {graph}")
+
+
+def _bf16_decoder_graph() -> str:
+    """A tiny Play-LMP step with the bf16_matmul decoder (2x64), K=4 steps
+    captured and replayed through core/graphs.py:StepGraph, against an
+    eager twin with capturable Adam: metrics within rtol 1e-4, parameters
+    within 2.5 lr a step."""
+    from tacorl_tpu_torch.core.graphs import seed_generators
+    from tacorl_tpu_torch.core.optimizers import set_capturable
+    from tacorl_tpu_torch.data.loader import tree_map
+
+    cfg, k, seed = _tiny_cfg(), 4, 3
+    cfg["action_decoder"] = {"hidden_size": 64, "num_layers": 2, "n_mixtures": 4, "bf16_matmul": True}
+    parts = [_batch(3, 5, 56, seed=i) for i in range(k)]
+    stacked = {"states": {"rgb_static": torch.from_numpy(np.stack([p["states"]["rgb_static"] for p in parts])).cuda()},
+               "actions": torch.from_numpy(np.stack([p["actions"] for p in parts])).cuda()}
+    twin = PlayLMPModule(cfg, device="cuda")
+    twin_state, twin_step = twin.init_state(0), twin.make_train_step()
+    set_capturable(twin_state.optimizer, True)
+    for i in range(k):
+        seed_generators(twin, twin.device, seed, i)
+        twin_state, twin_m = twin_step(twin_state, tree_map(lambda x: x[i], stacked))
+    graphed = PlayLMPModule(cfg, device="cuda")
+    g_state, scanned = graphed.init_state(0), graphed.make_scanned_train_step()
+    g_state, g_m = scanned(g_state, stacked, seed=seed)
+    torch.cuda.synchronize()
+    _check(graphed.net.action_decoder.rnn.bf16_matmul and scanned.graph.captures == 1
+           and scanned.graph.replays == k, f"reference_variants (d) graph: {scanned.graph.captures} captures, "
+           f"{scanned.graph.replays} replays")
+    row_err = max(abs(float(g_m[key]) - float(v)) / max(abs(float(v)), 1e-6) for key, v in twin_m.items())
+    param_err = max(float((v - twin.net.state_dict()[key]).abs().max()) for key, v in graphed.net.state_dict().items())
+    _check(np.isfinite(float(g_m["total_loss"])) and row_err <= 1e-4 and param_err <= 2.5 * cfg["lr"] * k,
+           f"reference_variants (d) graph: metrics {row_err}, parameters {param_err} from the eager twin")
+    return (f"the bf16 decoder in a tiny Play-LMP step, K={k} through StepGraph (1 capture, {k} replays) against "
+            f"an eager twin with capturable Adam: metrics within {row_err:.3g}, parameters within {param_err:.3g} "
+            f"(atol {2.5 * cfg['lr'] * k:.3g})")
+
+
+def _stacked_batch(k: int, seed: int) -> dict:
+    """K production Play-LMP batches stacked (K, 64, 16, ...), made on the
+    card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return {"states": {"rgb_static": torch.randint(0, 256, (k, BATCH, WINDOW, RAW_HW, RAW_HW, 3), generator=g,
+                                                   device="cuda", dtype=torch.uint8)},
+            "actions": torch.rand((k, BATCH, WINDOW, 7), generator=g, device="cuda") * 2 - 1}
+
+
+def _gaussian_stage1(card: str) -> dict:
+    """The production Play-LMP step with gaussian.yaml's decoder and the
+    random-plan loss: 12 eager steps, then a K=4 graphed chunk against an
+    eager twin with capturable Adam, its replays traced."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tacorl_tpu_torch.core.graphs import seed_generators
+    from tacorl_tpu_torch.core.optimizers import set_capturable
+    from tacorl_tpu_torch.data.loader import tree_map
+
+    cfg = _gaussian_cfg(PRODUCTION_CFG, GAUSSIAN_DECODER)
+    module = PlayLMPModule(cfg, device="cuda")
+    state, step = module.init_state(0), module.make_train_step()
+    batch = tree_map(lambda x: x[0], _stacked_batch(1, 0))
+    before = {k: v.detach().clone() for k, v in module.net.state_dict().items()}
+    jitter_normalize.launches, times, losses = 0, [], []
+    for _ in range(SLICE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append({k: float(v) for k, v in m.items()})
+    eager_launches = jitter_normalize.launches
+    _check(all(np.isfinite(v) for r in losses for v in r.values()), f"slice_variants/gaussian: non-finite {losses[-1]}")
+    _check(eager_launches == SLICE_STEPS, f"slice_variants/gaussian: {eager_launches} launches in {SLICE_STEPS} steps")
+    changed = sum(not torch.equal(before[k], v) for k, v in module.net.state_dict().items())
+    _check(changed > 0, "slice_variants/gaussian: no parameter changed")
+    ms = statistics.median(times[SLICE_WARMUP:])
+    lstm = module.net.action_decoder.rnn
+    del module, state, step, before
+    torch.cuda.empty_cache()
+
+    stacked, seed = _stacked_batch(VARIANT_K, 1), 7
+    twin = PlayLMPModule(cfg, device="cuda")
+    twin_state, twin_step = twin.init_state(0), twin.make_train_step()
+    set_capturable(twin_state.optimizer, True)
+    for i in range(2 * VARIANT_K):
+        seed_generators(twin, twin.device, seed, i)
+        twin_state, twin_m = twin_step(twin_state, tree_map(lambda x: x[i % VARIANT_K], stacked))
+    twin_m = {k: float(v) for k, v in twin_m.items()}
+    twin_params = {k: v.detach().clone() for k, v in twin.net.state_dict().items()}
+    del twin, twin_state, twin_step
+    torch.cuda.empty_cache()
+    graphed = PlayLMPModule(cfg, device="cuda")
+    g_state, scanned = graphed.init_state(0), graphed.make_scanned_train_step()
+    g_state, _ = scanned(g_state, stacked, seed=seed)  # capture, then K replays
+    torch.cuda.synchronize()
+    jitter_normalize.launches = 0
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        g_state, g_m = scanned(g_state, stacked, seed=seed)
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+
+    events = prof.key_averages()
+    names = {e.key for e in events if e.device_type == DeviceType.CPU}
+    replay_launches = sum(e.count for e in events if e.device_type == DeviceType.CUDA and e.key not in names
+                          and "jitter_normalize_kernel" in e.key and "shift_" not in e.key)
+    graph = scanned.graph
+    _check(graph.captures == 1 and graph.replays == 2 * VARIANT_K and g_state.step == 2 * VARIANT_K,
+           f"slice_variants/gaussian graph: {graph.captures} captures, {graph.replays} replays")
+    _check(jitter_normalize.launches == 0 and replay_launches == VARIANT_K,
+           f"slice_variants/gaussian graph: {replay_launches} jitter launches traced in {VARIANT_K} replays, "
+           f"{jitter_normalize.launches} eager")
+    row_err = max(abs(float(g_m[k]) - v) / max(abs(v), 1e-6) for k, v in twin_m.items() if k != "total_loss")
+    _check(row_err <= 1e-4, f"slice_variants/gaussian graph: metrics differ from the eager twin by {row_err}")
+    param_err = max(float((v - twin_params[k]).abs().max()) for k, v in graphed.net.state_dict().items())
+    _check(param_err <= 2.5 * cfg["lr"] * 2 * VARIANT_K, f"slice_variants/gaussian graph: params differ by {param_err}")
+    bitwise = param_err == 0.0 and all(float(g_m[k]) == v for k, v in twin_m.items())
+    replay_ms = _replay_ms(graph)
+    print(
+        f"[slice_variants/gaussian] production Play-LMP step with gaussian.yaml's decoder ({type(lstm).__name__} "
+        f"2x2048, 10 mixtures) and the random-plan loss, batch {BATCH} x window {WINDOW}, {RAW_HW}x{RAW_HW} uint8: "
+        f"{SLICE_STEPS} steps, median {ms:.3f} ms/step ({1e3 / ms:.2f} steps/s) over steps {SLICE_WARMUP + 1}-"
+        f"{SLICE_STEPS}, first {times[0]:.1f} ms | action_loss {losses[0]['action_loss']:.4f} -> "
+        f"{losses[-1]['action_loss']:.4f}, random_plan_action_loss {losses[-1]['random_plan_action_loss']:.4f} | "
+        f"{changed} tensors changed | jitter_normalize {eager_launches} launches in {SLICE_STEPS} eager steps | "
+        f"K={VARIANT_K} through StepGraph: cuDNN's LSTM captured ({graph.captures} capture, {graph.replays} "
+        f"replays), {replay_launches} jitter_normalize launches in the device trace of {VARIANT_K} replays (0 "
+        f"eager); against an eager twin with capturable Adam after {2 * VARIANT_K} steps: "
+        f"{'bit for bit' if bitwise else 'not bit for bit'}, metrics within {row_err:.3g}, parameters within "
+        f"{param_err:.3g} (atol {2.5 * cfg['lr'] * 2 * VARIANT_K:.3g}) | a replay {replay_ms:.3f} ms on the device | "
+        f"{card}",
+        flush=True,
+    )
+    del graphed, g_state, scanned, stacked
+    torch.cuda.empty_cache()
+    return {"eager": eager_launches, "graph": replay_launches, "ms": ms, "replay_ms": replay_ms}
+
+
+def _cql_variant(card: str) -> int:
+    """experiment=cql_fake's module at its composed widths with a D2RL actor,
+    DenseNet critics and VIB: 12 steps on device-resident batches."""
+    cfg = _flat_module_cfg(["experiment=cql_fake", "networks/policy=d2rl", "networks/q_network=densenet",
+                            "module.with_vib=true", "module.critic_encoder.networks.rgb_static.vib=true"])
+    module = CQLModule(cfg, device="cuda")
+    state, step = module.init_state(0), module.make_train_step()
+    batch = _to_device(_flat_batch(module, seed=9), "cuda")
+    before = {k: v.detach().clone() for k, v in module.net.state_dict().items()}
+    jitter_normalize.launches, times, rows = 0, [], []
+    for _ in range(SLICE_STEPS):
+        t0 = time.perf_counter()
+        state, m = step(state, batch, {"bc_phase": 0.0})
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        rows.append({k: float(v) for k, v in m.items()})
+    launches = jitter_normalize.launches
+    _check(all(np.isfinite(v) for r in rows for v in r.values()), f"slice_variants/cql: non-finite {rows[-1]}")
+    _check(launches == CQL_LAUNCHES_PER_STEP * SLICE_STEPS, f"slice_variants/cql: {launches} jitter launches")
+    _check("q1_vib_loss" in rows[-1], "slice_variants/cql: no VIB loss")
+    changed = sum(not torch.equal(before[k], v) for k, v in module.net.state_dict().items())
+    _check(changed > 0, "slice_variants/cql: no parameter changed")
+    ms = statistics.median(times[SLICE_WARMUP:])
+    q = module.net.q1.critic.Q
+    print(
+        f"[slice_variants/cql] experiment=cql_fake's widths with networks/policy=d2rl, networks/q_network=densenet "
+        f"({type(q).__name__}, trunk {q.trunk_dim} wide) and VIB (coefficient {module.vib_coefficient}), batch "
+        f"{FLAT_BATCH} at {FLAT_HW}x{FLAT_HW}: {SLICE_STEPS} steps, median {ms:.3f} ms/step over steps "
+        f"{SLICE_WARMUP + 1}-{SLICE_STEPS} | q1_loss {rows[0]['q1_loss']:.4f} -> {rows[-1]['q1_loss']:.4f}, "
+        f"q1_vib_loss {rows[-1]['q1_vib_loss']:.5f} | {changed} tensors changed | jitter_normalize {launches} "
+        f"launches ({CQL_LAUNCHES_PER_STEP} a step) | {card}",
+        flush=True,
+    )
+    del module, state, step
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _depth_variant(card: str) -> dict:
+    """depth_static through DeviceTransforms (configs/transforms/rl.yaml's
+    depth_static, gamma noise on) at the production window batch."""
+    from tacorl_tpu_torch.config import load_yaml
+    from tacorl_tpu_torch.data.transforms import DeviceTransforms
+
+    cfg = {"depth_static": {**load_yaml(f"{CONFIG_DIR}/transforms/rl.yaml")["depth_static"], "gamma_noise": True}}
+    g = torch.Generator(device="cuda").manual_seed(3)
+    depth = 3.0 + 4.0 * torch.rand((BATCH, WINDOW, RAW_HW, RAW_HW), generator=g, device="cuda")
+    transforms = DeviceTransforms(cfg, device="cuda")
+    jitter_normalize.launches = shift_jitter_normalize.launches = 0
+    out = {}
+    for train in (True, False):
+        out[train] = transforms({"depth_static": depth}, train=train, generator=g)["depth_static"]
+        ms = _time_ms(lambda: transforms({"depth_static": depth}, train=train, generator=g), reps=10, warmup=2)
+        x = out[train]
+        _check(x.shape == (BATCH, WINDOW, 3, 128, 128) and bool(torch.isfinite(x).all())
+               and x.min().item() >= -1.0 and x.max().item() <= 1.0, f"slice_variants/depth train={train}")
+        out[f"ms_{train}"] = ms
+    launches = jitter_normalize.launches + shift_jitter_normalize.launches
+    _check(launches == 0, f"slice_variants/depth: {launches} kernel launches")
+    print(
+        f"[slice_variants/depth] depth_static float32 {tuple(depth.shape)} -> {tuple(out[True].shape)} (planar, the "
+        f"encoder's layout; the JAX package's is (..., 128, 128, 3)), finite, in [-1, 1]: train (resize, DrQ shift, "
+        f"gamma noise, jet colormap) {out['ms_True']:.3f} ms, eval {out['ms_False']:.3f} ms a call | kernel "
+        f"launches 0 | {card}",
+        flush=True,
+    )
+    return {"jitter_normalize": jitter_normalize.launches, "shift_jitter_normalize": shift_jitter_normalize.launches}
+
+
+def _encoder_timings(card: str) -> None:
+    """ms per forward + backward of each new encoder at (1024, 3, 128, 128)
+    in its default bfloat16 convolutions (VectorEncoder on (1024, 39)
+    vectors), and of DeepSpatialEncoder / ResNet18Encoder in eval mode."""
+    from tacorl_tpu_torch.networks.encoders import VectorEncoder
+
+    x = torch.rand((ENCODER_N, 3, ENCODER_HW, ENCODER_HW), device="cuda") * 2 - 1
+    torch.manual_seed(0)
+    encoders = {**_variant_encoders(ENCODER_HW, "bfloat16"), "VectorEncoder": VectorEncoder(32, hidden=(256,), in_features=39)}
+    lines = []
+    for name, enc in encoders.items():
+        enc = enc.cuda()
+        inp = x if name != "VectorEncoder" else torch.randn((ENCODER_N, 39), device="cuda")
+        modes = ("train", "eval") if name in ("DeepSpatialEncoder", "ResNet18Encoder") else ("train",)
+        for mode in modes:
+            enc.train(mode == "train")
+
+            def fwd_bwd():
+                enc.zero_grad(set_to_none=True)
+                enc(inp).float().square().mean().backward()
+
+            ms = _time_ms(fwd_bwd, reps=10, warmup=2)
+            lines.append(f"{name}{' (eval)' if mode == 'eval' else ''} {ms:.3f}")
+        del enc
+        torch.cuda.empty_cache()
+    print(f"[slice_variants/encoders] ms per forward+backward at ({ENCODER_N}, 3, {ENCODER_HW}, {ENCODER_HW}), "
+          f"bf16 convolutions (VectorEncoder at ({ENCODER_N}, 39)): " + ", ".join(lines) + f" | {card}", flush=True)
+
+
+def phase_slice_variants(card: str) -> dict:
+    """The new options at production widths: the Gaussian stage-1 step (and
+    its graphed chunk), visual CQL with D2RL/DenseNet and VIB, the depth
+    transforms, the encoders' times."""
+    t0 = time.perf_counter()
+    out = {"gaussian": _gaussian_stage1(card), "cql": _cql_variant(card), "depth": _depth_variant(card)}
+    _encoder_timings(card)
+    print(f"[slice_variants] took {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return out
+
+
+def _loss_drop(tag: str, rows, key: str) -> tuple:
+    values = [r[key] for r in rows if key in r]
+    _check(len(values) == TRAIN_VARIANT_STEPS and all(np.isfinite(values)), f"{tag}: {len(values)} {key} rows")
+    first = statistics.mean(values[:TRAIN_VARIANT_WINDOW])
+    last = statistics.mean(values[-TRAIN_VARIANT_WINDOW:])
+    _check(last < first, f"{tag}: mean {key} of the last {TRAIN_VARIANT_WINDOW} steps {last} >= first {first}")
+    return first, last
+
+
+def phase_train_variants(card: str, root: str, flat_data: str, flat_pct: float) -> dict:
+    """train.main on the card for 200 steps each: play_lmp_fake with the
+    Gaussian decoder, cql_fake with a D2RL actor and DenseNet critics; then
+    ``tacorl_tpu_torch.evaluate.main`` on the Gaussian run's checkpoint for
+    2 short-horizon rollouts (the LSTM carry through a rollout)."""
+    from tacorl_tpu_torch import evaluate, train
+
+    t0 = time.perf_counter()
+    # both on phase 21's packed flagship set (an unpacked expert-play set's
+    # per-frame reads made the loader take about 1 s a batch); no validation
+    # and one save at the stop, so the run's time is its steps'
+    common = [f"trainer.max_steps={TRAIN_VARIANT_STEPS}", "trainer.log_every_n_steps=1", "~callbacks.rollout",
+              "trainer.val_every_n_epochs=1000", "trainer.ckpt_every_n_epochs=1000",
+              "ckpt_monitor=validation/total_loss", "ckpt_mode=min"]
+    launches, lines = {}, []
+    for tag, experiment, extra, data, key in (
+        ("gaussian", "play_lmp_fake", ["networks/action_decoder=gaussian"], flat_data, "train/action_loss"),
+        ("cql_d2rl_densenet", "cql_fake", ["networks/policy=d2rl", "networks/q_network=densenet",
+                                           f"datamodule.train_percentage={flat_pct}"], flat_data, "train/q1_loss"),
+    ):
+        run = f"{root}/{tag}"
+        jitter_normalize.launches = 0
+        t1 = time.perf_counter()
+        trainer = train.main([f"experiment={experiment}", f"data_dir={data}", f"run_dir={run}", *common, *extra])
+        wall = time.perf_counter() - t1
+        _check(trainer.device.type == "cuda" and trainer.global_step == TRAIN_VARIANT_STEPS,
+               f"train_variants/{tag}: {trainer.global_step} steps on {trainer.device}")
+        first, last = _loss_drop(f"train_variants/{tag}", _metrics_rows(run), key)
+        launches[tag] = jitter_normalize.launches
+        lines.append(f"{tag} ({experiment} {' '.join(e for e in extra if '/' in e)}): {TRAIN_VARIANT_STEPS} "
+                     f"steps in {wall:.1f} s, mean {key} first {TRAIN_VARIANT_WINDOW} {first:.4f} -> last "
+                     f"{TRAIN_VARIANT_WINDOW} {last:.4f}, jitter_normalize {launches[tag]} launches")
+        del trainer
+        torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        results = evaluate.main([
+            f"module_path={root}/gaussian", "epoch=-1", "eval_type=short_horizon", f"data_dir={flat_data}/validation",
+            "min_seq_len=1", "max_seq_len=400", "max_rollouts=2", "plan_duration=4", "env.max_episode_steps=24",
+            f"filename={tmp}/best.json",
+        ])
+        eval_s = time.perf_counter() - t1
+    _check(bool(results) and all(np.isfinite(r["accuracy"]) for r in results.values()),
+           f"train_variants: evaluate results {results}")
+    print(f"[train_variants] " + "; ".join(lines) + f" | evaluate epoch=-1 short_horizon on the Gaussian run, 2 "
+          f"rollouts, in {eval_s:.1f} s: " + ", ".join(f"{t} {r['accuracy']:.2f}" for t, r in results.items())
+          + f" | the phase took {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -3533,6 +4117,9 @@ def main() -> int:
         launches_online, online_kernel = phase_train_online(card, f"{tmp}/online")
         # the eager runs of phases 16, 18, 24, 27 and 30 are the references
         scan = phase_train_scan(card, f"{tmp}/scan", flat_data, pct)
+        phase_reference_variants()
+        variants = phase_slice_variants(card)
+        launches_variants = phase_train_variants(card, f"{tmp}/variants", flat_data, pct)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -3547,6 +4134,11 @@ def main() -> int:
         # counted in the device trace of the run's own graph replays of steps 5-12
         **{f"train_scan/{e}/steps_{SCAN_TRACED[0] + 1}-{SCAN_TRACED[1]}": v["launches"]
            for e, v in scan.items()},
+        "slice_variants/gaussian": variants["gaussian"]["eager"],
+        # counted in the device trace of K replays of the graphed Gaussian step
+        f"slice_variants/gaussian_graph/{VARIANT_K}_replays": variants["gaussian"]["graph"],
+        "slice_variants/cql": variants["cql"], "slice_variants/depth": variants["depth"]["jitter_normalize"],
+        **{f"train_variants/{e}": n for e, n in launches_variants.items()},
     }
     kernel["max_abs_err_train_scan"] = max(v["kernel_err"] for v in scan.values())
     first = online_kernel[ONLINE_VISUAL[0]]
@@ -3565,6 +4157,7 @@ def main() -> int:
         "train_ril_state": launches_ril["ril_fake_state"]["shift_jitter_normalize"],
         "rollout_ril": rollout_ril["shift_jitter_normalize"],
         **{f"train_online/{e}": n["shift_jitter_normalize"] for e, n in launches_online.items()},
+        "slice_variants/depth": variants["depth"]["shift_jitter_normalize"],
     }
     print(json.dumps({"kernels": [kernel, shift]}))
     print(card)

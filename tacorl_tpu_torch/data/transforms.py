@@ -3,22 +3,31 @@ tacorl_tpu/data/transforms.py).
 
 A config of the form
 
-    rgb_static: {kind: rgb, size: [128, 128], pad: 6, brightness: 0.1,
-                 contrast: 0.1, hue: 0.02, jitter_prob: 1.0,
-                 aug_dtype: bfloat16}
-    robot_obs:  {kind: vector, mean: [...], std: [...]}
+    rgb_static:   {kind: rgb, size: [128, 128], pad: 6, brightness: 0.1,
+                   contrast: 0.1, hue: 0.02, jitter_prob: 1.0,
+                   aug_dtype: bfloat16}
+    depth_static: {kind: depth, size: [128, 128], pad: 6, min_depth: 3.5,
+                   max_depth: 6.3, gamma_noise: false}
+    robot_obs:    {kind: vector, mean: [...], std: [...]}
 
 maps each observation modality to a function on the device. Train applies
 the full augmentation, validation the deterministic subset.
 
-Layout: rgb inputs arrive as uint8 (..., H, W, 3) (the loader's layout) and
-leave PLANAR, (..., 3, H', W'), because the encoder consumes NCHW; the JAX
-package returns (..., H', W', 3).
+Layout: rgb inputs arrive as uint8 (..., H, W, 3) (the loader's layout),
+depth inputs as float (..., H, W); both leave PLANAR, (..., 3, H', W'),
+because the encoder consumes NCHW; the JAX package returns
+(..., H', W', 3). The depth pipelines (resize, shift, scale, jet
+colormap) are stock tensor ops: the JAX package computes them in XLA,
+outside any Pallas kernel.
 
 Randomness enters as data: ``draws``, nested as the states are, may hold
-an rgb modality's DrQ ``shifts`` (N, 2) and jitter ``factors`` (N, 8), or
-a vector modality's ``noise``; what is missing is drawn from the
-``generator``.
+an rgb modality's DrQ ``shifts`` (N, 2) and jitter ``factors`` (N, 8), a
+depth modality's ``shifts`` and (with ``gamma_noise``) its ``gamma``
+multiplier (a scalar, Gamma(gamma_shape) / gamma_rate), or a vector
+modality's ``noise``; what is missing is drawn from the ``generator``.
+
+``image_sizes`` gives each image modality's output (H, W), which a
+``CustomEncoder`` is built with (``networks/late_fusion.py``).
 """
 
 from __future__ import annotations
@@ -36,9 +45,22 @@ from tacorl_tpu_torch.ops.jitter_aug import (
 )
 from tacorl_tpu_torch.utils import resolve_device
 
-__all__ = ["DeviceTransforms"]
+__all__ = ["DeviceTransforms", "image_sizes"]
 
 _AUG_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _kind(modality: str, cfg: dict) -> str:
+    return cfg.get("kind", "rgb" if "rgb" in modality else "depth" if "depth" in modality else "vector")
+
+
+def image_sizes(transforms: Optional[Dict[str, dict]]) -> Dict[str, Tuple[int, int]]:
+    """(H, W) of each rgb or depth modality's transformed frames."""
+    return {
+        m: tuple(int(v) for v in cfg.get("size", (128, 128)))
+        for m, cfg in (transforms or {}).items()
+        if _kind(m, cfg) in ("rgb", "depth")
+    }
 
 
 class DeviceTransforms:
@@ -62,8 +84,7 @@ class DeviceTransforms:
         cfg = self.cfg.get(modality)
         if cfg is None:
             return value.float()
-        kind = cfg.get("kind", "rgb" if "rgb" in modality else
-                       "depth" if "depth" in modality else "vector")
+        kind = _kind(modality, cfg)
         if kind == "rgb":
             size = tuple(cfg.get("size", (128, 128)))
             planar = value.movedim(-1, -3)  # uint8 (..., 3, H, W)
@@ -84,9 +105,26 @@ class DeviceTransforms:
                 x = x + noise * noise_std
             return x
         if kind == "depth":
-            raise NotImplementedError(
-                "depth transforms are not ported yet (see ROADMAP.md)"
-            )
+            size = tuple(cfg.get("size", (128, 128)))
+            lo, hi = float(cfg.get("min_depth", 0.0)), float(cfg.get("max_depth", 2.0))
+            if not train:
+                return image_aug.augment_depth_eval(value, size, lo, hi)
+            draws = draws or {}
+            x = value.float()
+            if cfg.get("gamma_noise", False):
+                gamma = draws.get("gamma")
+                if gamma is None:
+                    gamma = image_aug.sample_depth_gamma(
+                        float(cfg.get("gamma_shape", 1000.0)), float(cfg.get("gamma_rate", 1000.0)),
+                        x.device, generator,
+                    )
+                x = x * torch.as_tensor(gamma, dtype=torch.float32, device=x.device)
+            pad = int(cfg.get("pad", 6))
+            shifts = draws.get("shifts")
+            if shifts is None:
+                n = x.reshape((-1,) + x.shape[-2:]).shape[0]
+                shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=generator, device=x.device)
+            return image_aug.augment_depth_train(x, shifts, size, pad, lo, hi)
         raise ValueError(f"unknown transform kind {kind!r}")
 
     def _vector_stats(self, modality: str, cfg: dict, device) -> Tuple[Tensor, Tensor]:

@@ -29,8 +29,14 @@ from the module's generator) holds, with the JAX step's key for each:
     rand                    the (bs * n, action_dim) uniform actions in
                             [-1, 1) (k_rand)
 
+    vib                     critics whose encoder has a VIB head
+                            (``critic_encoder...vib: true``): the standard
+                            normals of the head's samples,
+                            {"observation": {mod: (bs, latent)}, "goal":
+                            {mod: ...}}, one per encoding of a step's
+                            observation (or next observation) and goal
     dropout                 MC-dropout critics only (``q_network.with_dropout``):
-                            {rows: boolean keep mask (rows, hidden_dim)} for
+                            {rows: boolean keep mask (rows, trunk_dim)} for
                             rows = bs and n * bs (k_drop)
 
 ``eps`` is the standard normal of the continuous action part and
@@ -59,9 +65,18 @@ the step draws no n-action samples, no random actions and no n * bs
 dropout mask, takes no alpha' step and reports no ``conservative_*``,
 ``*_random``, ``*_policy`` or ``alpha_prime`` metric, as the JAX step.
 
-Not ported (it raises): the VIB regularizer (``with_vib``). The JAX
-package cannot run it either: its ``init_state`` and critic applies supply
-no ``"sample"`` rng for the VIB encoder (ROADMAP Queue 3).
+VIB: a critic encoder with a VIB head encodes by a reparameterised sample.
+The JAX step cannot run it: its ``init_state`` and critic applies supply no
+``"sample"`` rng (ROADMAP Queue 3, repaired on the port's side). The port
+supplies the draw as the JAX step would with one ``"sample"`` key a step:
+flax derives the normals from the key, the module's path and the call's
+order within an apply, so every critic apply of a step (q1, q2, both
+targets, on the observation and on the next observation) takes the same
+normals for the observation's encoding and the same for the goal's. With
+``with_vib`` each critic loss adds ``vib_coefficient * KL(vib_dist ||
+N(0, I))`` of ``get_vib_distribution(obs)`` and logs ``<q>_vib_loss``.
+An actor encoder's VIB head (none of the configs has one) draws from the
+device's default generator.
 """
 
 from __future__ import annotations
@@ -76,9 +91,10 @@ from torch import Tensor
 from torch.profiler import record_function
 
 from tacorl_tpu_torch.config import get_class
+from tacorl_tpu_torch.core.distributions import DiagNormal, kl_diag_normal
 from tacorl_tpu_torch.core.optimizers import GroupOptimizer
 from tacorl_tpu_torch.core.train_state import TrainState
-from tacorl_tpu_torch.data.transforms import DeviceTransforms
+from tacorl_tpu_torch.data.transforms import DeviceTransforms, image_sizes
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.critic import Critic, dropout_keep_mask
@@ -87,14 +103,7 @@ from tacorl_tpu_torch.networks.late_fusion import build_late_fusion
 from tacorl_tpu_torch.networks.layers import reset_parameters
 from tacorl_tpu_torch.networks.visual_wrappers import VisualActorWrapper, VisualCriticWrapper
 
-__all__ = ["CQLNet", "CQLModule", "VIB_FAULT"]
-
-VIB_FAULT = (
-    "the VIB regularizer (with_vib) is not ported: the JAX package cannot run it "
-    "either, since CQLModule.init_state and its critic applies supply no 'sample' "
-    "rng for the VIB encoder, so its train step fails with flax InvalidRngError; "
-    "see ROADMAP Queue 3"
-)
+__all__ = ["CQLNet", "CQLModule"]
 
 
 class CQLNet(nn.Module):
@@ -141,8 +150,8 @@ class CQLModule(AlgorithmModule):
         self.target_action_gap = float(cfg.get("lagrange_thresh", 5.0))
         self.with_dr3 = bool(cfg.get("with_dr3", False))
         self.dr3_coefficient = float(cfg.get("dr3_coefficient", 0.03))
-        if cfg.get("with_vib", False):
-            raise NotImplementedError(VIB_FAULT)
+        self.with_vib = bool(cfg.get("with_vib", False))
+        self.vib_coefficient = float(cfg.get("vib_coefficient", 0.01))
         self.action_dim = int(cfg.get("action_dim", 7))
         self.target_entropy = float(cfg.get("target_entropy", -self.action_dim))
         self.obs_modalities = tuple(cfg.get("obs_modalities", ["rgb_static"]))
@@ -189,7 +198,10 @@ class CQLModule(AlgorithmModule):
         else:
             vector_dims = dict(cfg.get("vector_dims", {}))
             all_mods = list(dict.fromkeys(self.obs_modalities + self.goal_modalities))
-            actor_encoder = build_late_fusion(cfg["actor_encoder"]["networks"], all_mods, vector_dims)
+            sizes = image_sizes(cfg.get("transforms"))
+            actor_encoder = build_late_fusion(
+                cfg["actor_encoder"]["networks"], all_mods, vector_dims, sizes
+            )
             state_dim = actor_encoder.calc_state_dim(self.obs_modalities)
             goal_dim = actor_encoder.calc_state_dim(self.goal_modalities)
             g_cfg = dict(cfg.get("goal_encoder", {}))
@@ -197,7 +209,7 @@ class CQLModule(AlgorithmModule):
 
             def encoders(enc_key):
                 fusion = actor_encoder if enc_key == "actor_encoder" else build_late_fusion(
-                    cfg[enc_key]["networks"], all_mods, vector_dims
+                    cfg[enc_key]["networks"], all_mods, vector_dims, sizes
                 )
                 goal_encoder = VisualGoalEncoder(in_features=goal_dim, out_features=goal_dim, **g_cfg)
                 return fusion, goal_encoder, self.obs_modalities, self.goal_modalities
@@ -311,6 +323,7 @@ class CQLModule(AlgorithmModule):
         bs = actions.shape[0]
         metrics: Dict[str, Tensor] = {}
         masks = self._dropout_masks(draws, bs)
+        vib = self._vib_eps(draws, bs)
 
         # ---- 1. alpha: the current actions' log-density, no gradient
         with record_function("cql/alpha"):
@@ -329,8 +342,8 @@ class CQLModule(AlgorithmModule):
         # critics' gradient reaches the actor through the actions only
         with record_function("cql/actor"):
             bc_phase = step_scalar(scalars.get("bc_phase", 0.0))
-            q1_emb = net.q1.get_emb_representation(obs)
-            q2_emb = net.q2.get_emb_representation(obs)
+            q1_emb = net.q1.get_emb_representation(obs, vib)
+            q2_emb = net.q2.get_emb_representation(obs, vib)
             q_pi = torch.minimum(
                 net.q1.critic(q1_emb.detach(), curr_actions, masks.get(bs)),
                 net.q2.critic(q2_emb.detach(), curr_actions, masks.get(bs)),
@@ -351,8 +364,8 @@ class CQLModule(AlgorithmModule):
                     actor_emb_next, draws.get("next_bellman"), generator=gen
                 )
                 q_next = torch.minimum(
-                    net.target_q1(next_obs, next_actions, masks.get(bs)),
-                    net.target_q2(next_obs, next_actions, masks.get(bs)),
+                    net.target_q1(next_obs, next_actions, masks.get(bs), vib_eps=vib),
+                    net.target_q2(next_obs, next_actions, masks.get(bs), vib_eps=vib),
                 )
                 if not self.deterministic_backup:
                     q_next = q_next - alpha * next_log_pi
@@ -367,12 +380,12 @@ class CQLModule(AlgorithmModule):
                     metrics["alpha_prime"] = alpha_prime
 
             q1_loss, cons1_raw = self._critic_loss(
-                net.q1, q1_emb, "q1", actions, q_target, samples, alpha_prime, next_obs,
-                masks, metrics,
+                net.q1, q1_emb, "q1", actions, q_target, samples, alpha_prime, (obs, next_obs),
+                masks, vib, metrics,
             )
             q2_loss, cons2_raw = self._critic_loss(
-                net.q2, q2_emb, "q2", actions, q_target, samples, alpha_prime, next_obs,
-                masks, metrics,
+                net.q2, q2_emb, "q2", actions, q_target, samples, alpha_prime, (obs, next_obs),
+                masks, vib, metrics,
             )
             if optimize:
                 q1_grads = torch.autograd.grad(q1_loss, opt.params("q1"))
@@ -419,9 +432,27 @@ class CQLModule(AlgorithmModule):
                 masks[rows] = self._tensor(given[rows], torch.bool)
             else:
                 masks[rows] = dropout_keep_mask(
-                    (rows, q.hidden_dim), q.dropout_p, self.device, self.generator
+                    (rows, q.trunk_dim), q.dropout_p, self.device, self.generator
                 )
         return masks
+
+    def _vib_eps(self, draws, bs: int) -> Optional[Dict[str, Dict[str, Tensor]]]:
+        """The normals of the critic encoders' VIB samples for this step
+        (module docstring), from ``draws["vib"]`` or else the generator;
+        None without a VIB head."""
+        networks = self.net.q1.encoder.networks
+        given = draws.get("vib") or {}
+        out = {}
+        for part, mods in (("observation", self.obs_modalities), ("goal", self.goal_modalities)):
+            out[part] = {}
+            for m in mods:
+                if m in networks and getattr(networks[m], "vib", False):
+                    eps = (given.get(part) or {}).get(m)
+                    if eps is None:
+                        eps = torch.randn((bs, networks[m].latent_dim), generator=self.generator,
+                                          device=self.device)
+                    out[part][m] = self._tensor(eps)
+        return out if out["observation"] or out["goal"] else None
 
     def _conservative_samples(self, policy, emb, emb_next, bs, draws) -> Dict[str, Any]:
         """The actions the conservative term scores: random, current-policy
@@ -447,18 +478,19 @@ class CQLModule(AlgorithmModule):
         }
 
     def _critic_loss(
-        self, q, emb, name, actions, q_target, samples, alpha_prime, next_obs, masks, metrics
+        self, q, emb, name, actions, q_target, samples, alpha_prime, obs_pair, masks, vib, metrics
     ) -> Tuple[Tensor, Tensor]:
         """Bellman loss, the conservative penalty over the samples scored on
         the observation embedding tiled n times (without ``samples``: none),
-        and DR3; returns (loss, the raw conservative gap or None)."""
+        DR3 and VIB; ``obs_pair`` is (obs, next_obs). Returns (loss, the raw
+        conservative gap or None)."""
         n, bs = self.n_action_samples, actions.shape[0]
         q_data = q.critic(emb, actions, masks.get(bs))
         bellman = torch.mean((q_data - q_target) ** 2)
         metrics[f"{name}_data"] = q_data.mean().detach()
         metrics[f"bellman_{name}_loss"] = bellman.detach()
         if samples is None:
-            return self._critic_extra_losses(q, emb, name, bellman, None, next_obs, metrics)
+            return self._critic_extra_losses(q, emb, name, bellman, None, obs_pair, vib, metrics)
         emb_n = emb.repeat(n, 1)  # jnp.tile(emb, (n, 1))
 
         def n_q(acts):
@@ -488,16 +520,23 @@ class CQLModule(AlgorithmModule):
         metrics[f"{name}_policy"] = q_curr.mean().detach()
         metrics[f"conservative_{name}_loss"] = cons.detach()
         metrics[f"conservative_{name}_gap"] = cons_raw.detach()
-        return self._critic_extra_losses(q, emb, name, bellman + cons, cons_raw, next_obs, metrics)
+        return self._critic_extra_losses(q, emb, name, bellman + cons, cons_raw, obs_pair, vib, metrics)
 
-    def _critic_extra_losses(self, q, emb, name, loss, cons_raw, next_obs, metrics):
-        """DR3 on top of a critic's loss; records ``<name>_loss``."""
+    def _critic_extra_losses(self, q, emb, name, loss, cons_raw, obs_pair, vib, metrics):
+        """DR3 and VIB on top of a critic's loss; records ``<name>_loss``."""
+        obs, next_obs = obs_pair
         if self.with_dr3:
             with torch.no_grad():
-                emb_next = q.get_emb_representation(next_obs)
+                emb_next = q.get_emb_representation(next_obs, vib)
             dr3 = (emb * emb_next).sum(dim=1).mean() * self.dr3_coefficient
             loss = loss + dr3
             metrics[f"{name}_dr3_loss"] = dr3.detach()
+        if self.with_vib:
+            vib_dist = q.get_vib_distribution(obs)
+            prior = DiagNormal(torch.zeros_like(vib_dist.mean), torch.ones_like(vib_dist.std))
+            vib_loss = self.vib_coefficient * kl_diag_normal(vib_dist, prior).mean()
+            loss = loss + vib_loss
+            metrics[f"{name}_vib_loss"] = vib_loss.detach()
         metrics[f"{name}_loss"] = loss.detach()
         return loss, cons_raw
 

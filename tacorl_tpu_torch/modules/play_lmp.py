@@ -7,10 +7,20 @@ scores actions with a discretized-logistic-mixture NLL. The train step runs
 augmentation -> loss -> backward -> Adam eagerly on the module's device;
 the val step computes the loss metrics under the evaluation transforms.
 
+With ``add_random_plan_loss`` or ``log_random_plan_loss`` the decoder also
+scores the actions under a uniform plan and goal in [-1, 1):
+``random_plan_action_loss`` and ``random_plan_gripper_accuracy`` are
+metrics, and with ``add_random_plan_loss`` the total is ``total -
+random_plan_action_loss`` (the JAX package's sign); without it the random
+loss is computed without a graph.
+
 Randomness enters as data: the steps take optional explicit draws (the DrQ
 shifts and jitter factors per image modality, the posterior's eps, the
-prior's ``pp_eps`` in the val step); what is not given is drawn from the
-module's ``torch.Generator``. Dropout (the posterior's) draws from the
+prior's ``pp_eps`` in the val step, and ``draws``: ``random_plan`` and
+``random_goal``, the uniforms, and ``decoder`` / ``random_decoder``, the
+decoder samples' draws of the two action losses, whose gripper column the
+gripper accuracy reads); what is not given is drawn from the module's
+``torch.Generator``. Dropout (the posterior's) draws from the
 device's default generator, which takes no generator argument; the trainer
 seeds both per step (``core/trainer.py``).
 """
@@ -32,13 +42,13 @@ from tacorl_tpu_torch.core.distributions import (
     kl_diag_normal,
 )
 from tacorl_tpu_torch.core.train_state import TrainState
-from tacorl_tpu_torch.data.transforms import DeviceTransforms
+from tacorl_tpu_torch.data.transforms import DeviceTransforms, image_sizes
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.late_fusion import LateFusion, build_late_fusion
 from tacorl_tpu_torch.networks.layers import reset_parameters
 
-__all__ = ["PlayLMPNet", "PlayLMPModule"]
+__all__ = ["PlayLMPNet", "PlayLMPModule", "uniform_pm1"]
 
 
 def _base_normal(dist) -> DiagNormal:
@@ -65,8 +75,12 @@ class PlayLMPNet(nn.Module):
         ad_modalities: Tuple[str, ...],
         kl_balancing: bool = True,
         kl_alpha: float = 0.8,
+        add_random_plan_loss: bool = False,
+        log_random_plan_loss: bool = False,
     ):
         super().__init__()
+        self.add_random_plan_loss = add_random_plan_loss
+        self.log_random_plan_loss = log_random_plan_loss
         self.perceptual_encoder = perceptual_encoder
         self.goal_encoder = goal_encoder
         self.plan_recognition = plan_recognition
@@ -121,22 +135,26 @@ class PlayLMPNet(nn.Module):
         return kl_diag_normal(posterior, prior).mean()
 
     def _action_loss(
-        self, ad_states, actions, latent_plan, latent_goal
+        self, ad_states, actions, latent_plan, latent_goal, draws=None, generator=None
     ) -> Tuple[Tensor, Tensor]:
         """Returns (loss, gripper_accuracy). Without include_goal the final
         frame is dropped: a plan explains actions up to the goal frame, not
-        the action taken in it."""
+        the action taken in it. The predicted gripper is the last column of
+        the decoder's sample (the logistic decoder's discrete gripper
+        returns that column alone)."""
         if self.action_decoder.include_goal:
-            loss, pred_gripper = self.action_decoder.loss_and_act(
-                latent_plan, ad_states, actions, latent_goal
+            loss, pred = self.action_decoder.loss_and_act(
+                latent_plan, ad_states, actions, latent_goal, draws, generator
             )
             gt_gripper = actions[..., -1]
         else:
-            loss, pred_gripper = self.action_decoder.loss_and_act(
-                latent_plan, ad_states[:, :-1], actions[:, :-1]
+            loss, pred = self.action_decoder.loss_and_act(
+                latent_plan, ad_states[:, :-1], actions[:, :-1], None, draws, generator
             )
             gt_gripper = actions[:, :-1, -1]
-        pred_gripper = torch.where(pred_gripper > 0, 1.0, -1.0)
+        if pred.dim() == actions.dim():
+            pred = pred[..., -1]
+        pred_gripper = torch.where(pred > 0, 1.0, -1.0)
         grip_acc = (gt_gripper == pred_gripper).float().mean()
         return loss, grip_acc
 
@@ -149,12 +167,14 @@ class PlayLMPNet(nn.Module):
         generator: Optional[torch.Generator] = None,
         sample_pp: bool = False,
         pp_eps: Optional[Tensor] = None,
+        draws: Optional[Dict[str, Any]] = None,
     ) -> Tuple[Tensor, Dict[str, Tensor], Optional[Tensor]]:
         """The ELBO. ``eps`` (B, latent_plan_dim) is the posterior's
-        standard-normal draw. Returns (total_loss, metrics, sampled_plan_pp):
-        with ``sample_pp`` a plan sampled from the proposal prior (its
-        standard normal ``pp_eps``, JAX's k_pp), else None (the JAX train
-        step discards it)."""
+        standard-normal draw, ``draws`` as in the module docstring. Returns
+        (total_loss, metrics, sampled_plan_pp): with ``sample_pp`` a plan
+        sampled from the proposal prior (its standard normal ``pp_eps``,
+        JAX's k_pp), else None (the JAX train step discards it)."""
+        draws = draws or {}
         emb, pp_dist, pr_dist, lat_goal = self.process_batch(states)
         kl_loss = self.compute_kl_loss(pr_dist, pp_dist)
         kl_scaled = kl_loss * kl_beta
@@ -162,7 +182,7 @@ class PlayLMPNet(nn.Module):
         ad_states = torch.cat([emb[m] for m in self.ad_modalities], dim=-1)
         latent_plan = pr_dist.sample(generator, eps=eps)  # rsample: gradients flow
         action_loss, grip_acc = self._action_loss(
-            ad_states, actions, latent_plan, lat_goal
+            ad_states, actions, latent_plan, lat_goal, draws.get("decoder"), generator
         )
         total = kl_scaled + action_loss
         metrics = {
@@ -170,8 +190,21 @@ class PlayLMPNet(nn.Module):
             "kl_loss_scaled": kl_scaled,
             "action_loss": action_loss,
             "gripper_accuracy": grip_acc,
-            "total_loss": total,
         }
+        if self.add_random_plan_loss or self.log_random_plan_loss:
+            rand_plan, rand_goal = (
+                uniform_pm1(draws.get(k), like.shape, like, generator)
+                for k, like in (("random_plan", pr_dist.mean), ("random_goal", lat_goal))
+            )
+            with torch.set_grad_enabled(self.add_random_plan_loss and torch.is_grad_enabled()):
+                rand_loss, rand_acc = self._action_loss(
+                    ad_states, actions, rand_plan, rand_goal, draws.get("random_decoder"), generator
+                )
+            metrics["random_plan_action_loss"] = rand_loss
+            metrics["random_plan_gripper_accuracy"] = rand_acc
+            if self.add_random_plan_loss:
+                total = total - rand_loss
+        metrics["total_loss"] = total
         sampled_plan_pp = pp_dist.sample(generator, eps=pp_eps) if sample_pp else None
         return total, metrics, sampled_plan_pp
 
@@ -210,15 +243,19 @@ class PlayLMPNet(nn.Module):
         return action[:, 0], carry
 
 
+def uniform_pm1(given: Optional[Tensor], shape, like: Tensor, generator) -> Tensor:
+    """``given`` in ``like``'s dtype and device, else a uniform draw on
+    [-1, 1) there (the random plan and goal)."""
+    if given is not None:
+        return torch.as_tensor(given).to(like)
+    return torch.rand(shape, generator=generator, device=like.device) * 2.0 - 1.0
+
+
 class PlayLMPModule(AlgorithmModule):
     name = "play_lmp"
 
     def build(self) -> None:
         cfg = self.cfg
-        if cfg.get("add_random_plan_loss") or cfg.get("log_random_plan_loss"):
-            raise NotImplementedError(
-                "the random-plan loss is not ported yet (see ROADMAP.md)"
-            )
         self.latent_plan_dim = int(cfg.get("latent_plan_dim", 16))
         self.pp_obs = tuple(cfg.get("plan_proposal_obs_modalities", ["rgb_static"]))
         self.pp_goal = tuple(cfg.get("plan_proposal_goal_modalities", ["rgb_static"]))
@@ -235,7 +272,8 @@ class PlayLMPModule(AlgorithmModule):
         # (init_state re-initializes from its seed)
         with torch.random.fork_rng(devices=[]):
             encoder = build_late_fusion(
-                cfg["perceptual_encoder"]["networks"], all_mods, vector_dims
+                cfg["perceptual_encoder"]["networks"], all_mods, vector_dims,
+                image_sizes(cfg.get("transforms")),
             )
             pp_state_dim = encoder.calc_state_dim(self.pp_obs)
             pp_goal_dim = encoder.calc_state_dim(self.pp_goal)
@@ -304,6 +342,8 @@ class PlayLMPModule(AlgorithmModule):
                 ad_modalities=self.ad_mods,
                 kl_balancing=bool(cfg.get("kl_balancing", True)),
                 kl_alpha=float(cfg.get("kl_alpha", 0.8)),
+                add_random_plan_loss=bool(cfg.get("add_random_plan_loss", False)),
+                log_random_plan_loss=bool(cfg.get("log_random_plan_loss", False)),
             )
         self.transforms = DeviceTransforms(cfg.get("transforms"), device=self.device)
         self.lr = float(cfg.get("lr", 1e-4))
@@ -347,10 +387,13 @@ class PlayLMPModule(AlgorithmModule):
             *,
             aug_draws: Optional[Dict[str, Dict[str, Tensor]]] = None,
             eps: Optional[Tensor] = None,
+            draws: Optional[Dict[str, Any]] = None,
         ) -> Tuple[TrainState, Dict[str, Tensor]]:
             """One step: augment -> loss -> backward -> Adam, in place on
             ``state``. ``aug_draws`` maps an image modality to its
-            ``shifts``/``factors``; ``eps`` is the posterior's draw."""
+            ``shifts``/``factors``; ``eps`` is the posterior's draw,
+            ``draws`` the random plan's and the decoders' (module
+            docstring)."""
             scalars = self.step_scalars() if scalars is None else scalars
             net.train()
             # the ranges name the step's stages in a torch.profiler trace
@@ -362,7 +405,8 @@ class PlayLMPModule(AlgorithmModule):
             state.optimizer.zero_grad(set_to_none=True)
             with record_function("play_lmp/loss"):
                 total, metrics, _ = net.compute_loss(
-                    states, actions, step_scalar(scalars["kl_beta"]), eps=eps, generator=generator
+                    states, actions, step_scalar(scalars["kl_beta"]), eps=eps, generator=generator,
+                    draws=draws,
                 )
             with record_function("play_lmp/backward"):
                 total.backward()
@@ -390,6 +434,7 @@ class PlayLMPModule(AlgorithmModule):
             *,
             eps: Optional[Tensor] = None,
             pp_eps: Optional[Tensor] = None,
+            draws: Optional[Dict[str, Any]] = None,
         ) -> Tuple[Dict[str, Tensor], Dict[str, Any]]:
             """The loss metrics under the evaluation transforms, in eval
             mode, without gradients; the outputs hold ``sampled_plan_pp``,
@@ -403,7 +448,7 @@ class PlayLMPModule(AlgorithmModule):
                 actions = torch.as_tensor(batch["actions"]).to(device, torch.float32)
                 _, metrics, sampled_plan_pp = net.compute_loss(
                     states, actions, step_scalar(scalars["kl_beta"]), eps=eps,
-                    generator=generator, sample_pp=True, pp_eps=pp_eps,
+                    generator=generator, sample_pp=True, pp_eps=pp_eps, draws=draws,
                 )
             outputs = {"sampled_plan_pp": sampled_plan_pp, "idx": batch["idx"]}
             if "state_info" in batch:

@@ -32,7 +32,7 @@ from torch.profiler import record_function
 from tacorl_tpu_torch.config import get_class
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
-from tacorl_tpu_torch.modules.play_lmp import PlayLMPNet
+from tacorl_tpu_torch.modules.play_lmp import PlayLMPNet, uniform_pm1
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.layers import reset_parameters
 
@@ -93,12 +93,9 @@ class PlayLMPD4RLNet(nn.Module):
         obs, acts = observations[:, :-1], actions[:, :-1]
         latent_plan = pr_dist.sample(generator, eps=eps)  # rsample: gradients flow
         action_loss = self.action_decoder.loss(latent_plan, obs, acts)
-        if random_plan is None:
-            random_plan = (
-                torch.rand(pr_dist.mean.shape, generator=generator, device=obs.device) * 2.0 - 1.0
-            )
+        random_plan = uniform_pm1(random_plan, pr_dist.mean.shape, obs, generator)
         with torch.set_grad_enabled(self.add_random_plan_loss and torch.is_grad_enabled()):
-            random_loss = self.action_decoder.loss(random_plan.to(obs), obs, acts)
+            random_loss = self.action_decoder.loss(random_plan, obs, acts)
         total = kl_scaled + action_loss
         if self.add_random_plan_loss:
             total = total - random_loss

@@ -30,7 +30,7 @@ from torch.profiler import record_function
 
 from tacorl_tpu_torch.config import get_class
 from tacorl_tpu_torch.core.train_state import TrainState
-from tacorl_tpu_torch.data.transforms import DeviceTransforms
+from tacorl_tpu_torch.data.transforms import DeviceTransforms, image_sizes
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.goal_encoder import VisualGoalEncoder
@@ -141,7 +141,10 @@ class RILModule(AlgorithmModule):
         # so building leaves the caller's stream untouched (init_state
         # re-initializes from its seed)
         with torch.random.fork_rng(devices=[]):
-            encoder = build_late_fusion(cfg["perceptual_encoder"]["networks"], all_mods, vector_dims)
+            encoder = build_late_fusion(
+                cfg["perceptual_encoder"]["networks"], all_mods, vector_dims,
+                image_sizes(cfg.get("transforms")),
+            )
             hl_dim = encoder.calc_state_dim(self.hl_mods)
             ll_dim = encoder.calc_state_dim(self.ll_mods)
             goal_cfg = dict(cfg.get("goal_encoder", {}))

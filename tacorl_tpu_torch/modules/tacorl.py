@@ -37,6 +37,7 @@ from torch.profiler import record_function
 
 from tacorl_tpu_torch.config import get_class
 from tacorl_tpu_torch.core.checkpoint import load_module_from_checkpoint
+from tacorl_tpu_torch.data.transforms import image_sizes
 from tacorl_tpu_torch.modules.cql import CQLModule, CQLNet
 from tacorl_tpu_torch.networks.critic import Critic
 from tacorl_tpu_torch.networks.late_fusion import build_late_fusion
@@ -109,7 +110,7 @@ class TACORLModule(CQLModule):
         def critic():
             q_net = q_cls(input_dim=pp.state_dim + pp.goal_dim + self.action_dim, **q_cfg)
             return VisualCriticWrapper(
-                build_late_fusion(critic_enc_cfg, all_mods, vector_dims),
+                build_late_fusion(critic_enc_cfg, all_mods, vector_dims, image_sizes(cfg.get("transforms"))),
                 copy.deepcopy(lmp_net.goal_encoder), self.obs_modalities, self.goal_modalities,
                 Critic(q_net, pp.state_dim, pp.goal_dim, self.action_dim),
             )

@@ -1,8 +1,10 @@
-"""Policy networks (port of the MLP policy and ``Actor`` of
-tacorl_tpu/networks/actor.py: ``get_dist``, ``get_actions``,
+"""Policy networks (port of the MLP, D2RL and DenseNet policies and
+``Actor`` of tacorl_tpu/networks/actor.py: ``get_dist``, ``get_actions``,
 ``sample_n_with_log_prob``, ``log_prob``, with the discrete Gumbel-softmax
 gripper). state_dict keys follow the reference: ``policy.fc_layers.{i}``,
-``policy.fc_mean``, ``policy.fc_log_std``, ``policy.gripper_action``."""
+``policy.fc_mean``, ``policy.fc_log_std``, ``policy.gripper_action``.
+The three policies differ only in their trunk (``networks/layers.py:Trunk``,
+which gives each layer its in-features)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,6 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch import Tensor
 
 from tacorl_tpu_torch.core.distributions import (
@@ -19,19 +20,21 @@ from tacorl_tpu_torch.core.distributions import (
     gumbel_softmax_rsample,
     gumbel_softmax_sample,
 )
-from tacorl_tpu_torch.networks.layers import TorchDense
+from tacorl_tpu_torch.networks.layers import TorchDense, Trunk
 
 LOG_SIG_MAX = 2.0
 LOG_SIG_MIN = -5.0
 MEAN_MIN = -9.0
 MEAN_MAX = 9.0
 
-__all__ = ["Actor", "MLPPolicy"]
+__all__ = ["Actor", "MLPPolicy", "D2RLPolicy", "DenseNetPolicy"]
 
 
 class MLPPolicy(nn.Module):
     """Plain MLP trunk, SiLU activations; clamped mean/log_std heads with a
     small last-layer init (U(+-init_w))."""
+
+    trunk_kind = "mlp"
 
     def __init__(
         self,
@@ -47,24 +50,35 @@ class MLPPolicy(nn.Module):
         self.num_layers = num_layers
         self.hidden_dim = hidden_dim
         cont_dim = action_dim - (1 if discrete_gripper else 0)
-        dims = [input_dim] + [hidden_dim] * num_layers
-        self.fc_layers = nn.ModuleList(
-            TorchDense(i, o) for i, o in zip(dims[:-1], dims[1:])
-        )
-        self.fc_mean = TorchDense(hidden_dim, cont_dim, init_w=init_w)
-        self.fc_log_std = TorchDense(hidden_dim, cont_dim, init_w=init_w)
+        self.fc_layers = Trunk(self.trunk_kind, input_dim, hidden_dim, num_layers)
+        head_in = self.fc_layers.out_dim
+        self.fc_mean = TorchDense(head_in, cont_dim, init_w=init_w)
+        self.fc_log_std = TorchDense(head_in, cont_dim, init_w=init_w)
         if discrete_gripper:
-            self.gripper_action = TorchDense(hidden_dim, 2, init_w=init_w)
+            self.gripper_action = TorchDense(head_in, 2, init_w=init_w)
 
     def forward(self, x: Tensor):
-        for fc in self.fc_layers:
-            x = F.silu(fc(x))
+        x = self.fc_layers(x)
         mean = torch.clamp(self.fc_mean(x), MEAN_MIN, MEAN_MAX)
         log_std = torch.clamp(self.fc_log_std(x), LOG_SIG_MIN, LOG_SIG_MAX)
         std = torch.exp(log_std)
         if self.discrete_gripper:
             return mean, std, self.gripper_action(x)
         return mean, std
+
+
+class D2RLPolicy(MLPPolicy):
+    """Input-skip trunk: each layer after the first sees [h, input]."""
+
+    trunk_kind = "d2rl"
+
+
+class DenseNetPolicy(MLPPolicy):
+    """Dense-concatenation trunk: each layer's output is concatenated to
+    its input. The reference DenseNet policy has no discrete-gripper head;
+    the JAX package keeps it available, and so does the port."""
+
+    trunk_kind = "densenet"
 
 
 class Actor(nn.Module):

@@ -1,6 +1,8 @@
-"""Q-networks (port of ``MLPQNetwork`` and ``Critic`` of
-tacorl_tpu/networks/critic.py): Q(s ⊕ g ⊕ a) -> scalar. state_dict keys
-follow the reference: ``Q.fc_layers.{i}``, ``Q.out``.
+"""Q-networks (port of ``MLPQNetwork``, ``D2RLQNetwork``,
+``DenseNetQNetwork`` and ``Critic`` of tacorl_tpu/networks/critic.py):
+Q(s ⊕ g ⊕ a) -> scalar over an MLP, D2RL or DenseNet trunk
+(``networks/layers.py:Trunk``, the policies' trunk). state_dict keys follow the
+reference: ``Q.fc_layers.{i}``, ``Q.out``.
 
 MC-dropout critics (``with_dropout``, the uncertainty-gated horizon
 curriculum's requirement) keep dropout active in every forward, train or
@@ -18,12 +20,11 @@ from typing import Optional
 
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 from torch import Tensor
 
-from tacorl_tpu_torch.networks.layers import TorchDense, get_activation
+from tacorl_tpu_torch.networks.layers import TorchDense, Trunk, get_activation
 
-__all__ = ["Critic", "MLPQNetwork", "dropout_keep_mask"]
+__all__ = ["Critic", "MLPQNetwork", "D2RLQNetwork", "DenseNetQNetwork", "dropout_keep_mask"]
 
 
 def dropout_keep_mask(
@@ -39,7 +40,10 @@ def dropout_keep_mask(
 class MLPQNetwork(nn.Module):
     """SiLU MLP trunk and a small-init (U(+-init_w)) scalar head.
     ``input_dim`` (state + goal + action) is inferred by flax in the JAX
-    package and given here."""
+    package and given here. An MC-dropout mask covers the trunk's whole
+    output, ``trunk_dim`` wide."""
+
+    trunk_kind = "mlp"
 
     def __init__(
         self,
@@ -55,11 +59,9 @@ class MLPQNetwork(nn.Module):
         self.with_dropout = bool(with_dropout)
         self.dropout_p = float(dropout_p)
         self.hidden_dim = hidden_dim
-        dims = [input_dim] + [hidden_dim] * num_layers
-        self.fc_layers = nn.ModuleList(
-            TorchDense(i, o) for i, o in zip(dims[:-1], dims[1:])
-        )
-        self.out = TorchDense(hidden_dim, 1, init_w=init_w)
+        self.fc_layers = Trunk(self.trunk_kind, input_dim, hidden_dim, num_layers)
+        self.trunk_dim = self.fc_layers.out_dim
+        self.out = TorchDense(self.trunk_dim, 1, init_w=init_w)
         self.last_act = get_activation(last_layer_activation)
 
     def forward(
@@ -68,15 +70,26 @@ class MLPQNetwork(nn.Module):
         mask: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
     ) -> Tensor:
-        x = q_input
-        for fc in self.fc_layers:
-            x = F.silu(fc(x))
+        x = self.fc_layers(q_input)
         if self.with_dropout:
             if mask is None:
                 mask = dropout_keep_mask(x.shape, self.dropout_p, x.device, generator)
             # flax's Dropout: select(keep, x / keep_prob, 0)
             x = torch.where(mask, x / (1.0 - self.dropout_p), torch.zeros_like(x))
         return self.last_act(self.out(x))
+
+
+class D2RLQNetwork(MLPQNetwork):
+    """Input-skip trunk (``D2RLPolicy``'s)."""
+
+    trunk_kind = "d2rl"
+
+
+class DenseNetQNetwork(MLPQNetwork):
+    """Dense-concatenation trunk (``DenseNetPolicy``'s), ``input +
+    num_layers * hidden`` wide."""
+
+    trunk_kind = "densenet"
 
 
 class Critic(nn.Module):

@@ -1,18 +1,37 @@
 """LateFusion perceptual encoder: one encoder per modality, concatenated
 latents (port of tacorl_tpu/networks/late_fusion.py). state_dict keys are
-the reference's ``networks.<modality>.*``."""
+the reference's ``networks.<modality>.*``.
+
+``build_late_fusion`` gives a ``CustomEncoder``, whose flatten width flax
+infers from the image, the modality's (H, W) from ``image_sizes``
+(``data/transforms.py:image_sizes``) where its config does not set
+``input_hw``.
+
+It refuses an encoder with BatchNorm (``DeepSpatialEncoder`` with
+``use_batch_norm``, ``ResNet18Encoder``, ``R3MEncoder``):
+``NotImplementedError(BATCHNORM_FAULT)``. The networks themselves are
+ported and held against flax on their own."""
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
 from torch import Tensor
 
 from tacorl_tpu_torch.config import get_class
+from tacorl_tpu_torch.networks.encoders import CustomEncoder, FlaxBatchNorm
 
-__all__ = ["LateFusion", "build_late_fusion"]
+__all__ = ["BATCHNORM_FAULT", "LateFusion", "build_late_fusion"]
+
+BATCHNORM_FAULT = (
+    "an encoder with BatchNorm (DeepSpatialEncoder with use_batch_norm, "
+    "ResNet18Encoder, R3MEncoder) inside a module is not ported: the JAX modules "
+    "keep only the 'params' collection, so their train steps fail for want of "
+    "'batch_stats' (flax ScopeCollectionNotFound) and cannot run it either "
+    "(ROADMAP Queue 3)"
+)
 
 
 def _is_image(modality: str) -> bool:
@@ -41,11 +60,15 @@ class LateFusion(nn.Module):
         observation: Dict[str, Tensor],
         modalities: Sequence[str],
         cat_output: bool = True,
+        eps: Optional[Dict[str, Tensor]] = None,
     ):
         """Image modalities go through their encoder (planar (N, C, H, W),
-        or one (C, H, W) frame); vector modalities pass through as float."""
+        or one (C, H, W) frame); vector modalities pass through as float.
+        ``eps`` maps a modality whose encoder has a VIB head to the normals
+        of its sample."""
         if not isinstance(observation, dict):
             return observation
+        eps = eps or {}
         state = {}
         for modality in modalities:
             value = observation[modality]
@@ -53,7 +76,8 @@ class LateFusion(nn.Module):
                 squeeze = value.dim() == 3
                 if squeeze:
                     value = value[None]
-                out = self.networks[modality](value)
+                kw = {"eps": eps[modality]} if modality in eps else {}
+                out = self.networks[modality](value, **kw)
                 state[modality] = out[0] if squeeze else out
             else:
                 state[modality] = value.float()
@@ -77,6 +101,7 @@ def build_late_fusion(
     networks: Dict[str, Dict[str, Any]],
     modalities: Sequence[str],
     vector_dims: Optional[Dict[str, int]] = None,
+    image_sizes: Optional[Dict[str, Tuple[int, int]]] = None,
 ) -> LateFusion:
     """Instantiate per-modality encoders from ``_target_`` configs, keeping
     only the requested modalities."""
@@ -89,5 +114,10 @@ def build_late_fusion(
             raise ValueError(f"network configuration for {modality!r} is missing")
         cfg = dict(networks[modality])
         cls = get_class(cfg.pop("_target_"))
-        encoders[modality] = cls(**cfg)
+        if cls is CustomEncoder and modality in (image_sizes or {}):
+            cfg.setdefault("input_hw", image_sizes[modality])
+        encoder = cls(**cfg)
+        if any(isinstance(m, FlaxBatchNorm) for m in encoder.modules()):
+            raise NotImplementedError(f"{modality}: {BATCHNORM_FAULT}")
+        encoders[modality] = encoder
     return LateFusion(encoders, vector_dims)

@@ -26,6 +26,7 @@ __all__ = [
     "resolve_dtype",
     "lecun_normal_",
     "MLP",
+    "Trunk",
     "reset_parameters",
 ]
 
@@ -188,4 +189,34 @@ class MLP(nn.Module):
             x = self.out(x)
             if self.activate_last:
                 x = self.act(x)
+        return x
+
+
+class Trunk(nn.ModuleList):
+    """The SiLU dense trunk of the policies and Q-networks, of kind
+    ``"mlp"`` (plain), ``"d2rl"`` (the input concatenated to each hidden
+    output before the next layer) or ``"densenet"`` (each layer's output
+    concatenated to its input). flax infers each layer's in-features; torch
+    takes them: layer i > 0 sees ``hidden`` (mlp), ``hidden + in_dim``
+    (d2rl) or ``in_dim + i * hidden`` (densenet), and ``out_dim`` is
+    ``hidden``, or DenseNet's ``in_dim + num_layers * hidden``. A list of
+    its layers, so their state_dict keys stay ``{i}.weight``."""
+
+    def __init__(self, kind: str, in_dim: int, hidden: int, num_layers: int):
+        widths = {
+            "mlp": lambda i: hidden if i else in_dim,
+            "d2rl": lambda i: hidden + in_dim if i else in_dim,
+            "densenet": lambda i: in_dim + i * hidden,
+        }[kind]
+        super().__init__(TorchDense(widths(i), hidden) for i in range(num_layers))
+        self.kind = kind
+        self.out_dim = in_dim + num_layers * hidden if kind == "densenet" else hidden
+
+    def forward(self, x: Tensor) -> Tensor:
+        inp = x
+        for i, fc in enumerate(self):
+            if self.kind == "densenet":
+                x = torch.cat([x, F.silu(fc(x))], dim=-1)
+            else:
+                x = F.silu(fc(torch.cat([x, inp], dim=-1) if i and self.kind == "d2rl" else x))
         return x

@@ -7,7 +7,9 @@ reference: ``encoder.networks.<modality>.*``, ``goal_encoder.mlp.*``, then
 samplers on the embedding (``networks/actor.py``); the rollout policies call
 the wrapper's ``get_actions``. ``get_vib_distribution`` is the VIB head's
 distribution of the ``rgb_static`` encoder (an encoder built with
-``vib: true``)."""
+``vib: true``). ``vib_eps`` ({"observation": {modality: eps}, "goal":
+{...}}) gives the normals of VIB heads' samples, else they draw their own
+(``networks/late_fusion.py``)."""
 
 from __future__ import annotations
 
@@ -40,16 +42,17 @@ class _VisualWrapperBase(nn.Module):
         self.env_modalities = tuple(env_modalities)
         self.goal_modalities = tuple(goal_modalities)
 
-    def get_emb_representation(self, obs: Obs) -> Tensor:
+    def get_emb_representation(self, obs: Obs, vib_eps: Optional[Dict[str, Dict[str, Tensor]]] = None) -> Tensor:
         if not isinstance(obs, dict):
             return obs
+        vib_eps = vib_eps or {}
         if self.goal_modalities and "goal" in obs:
-            emb_obs = self.encoder.encode(obs["observation"], self.env_modalities)
-            emb_goal = self.encoder.encode(obs["goal"], self.goal_modalities)
+            emb_obs = self.encoder.encode(obs["observation"], self.env_modalities, eps=vib_eps.get("observation"))
+            emb_goal = self.encoder.encode(obs["goal"], self.goal_modalities, eps=vib_eps.get("goal"))
             if self.goal_encoder is not None:
                 emb_goal = self.goal_encoder(emb_goal)
             return torch.cat([emb_obs, emb_goal], dim=-1)
-        return self.encoder.encode(obs, self.env_modalities)
+        return self.encoder.encode(obs, self.env_modalities, eps=vib_eps.get("observation"))
 
 
 class VisualActorWrapper(_VisualWrapperBase):
@@ -82,10 +85,11 @@ class VisualCriticWrapper(_VisualWrapperBase):
         action: Tensor,
         mask: Optional[Tensor] = None,
         generator: Optional[torch.Generator] = None,
+        vib_eps: Optional[Dict[str, Dict[str, Tensor]]] = None,
     ) -> Tensor:
         """``mask`` and ``generator``: an MC-dropout trunk's keep mask or
         its source (``networks/critic.py``)."""
-        return self.critic(self.get_emb_representation(obs), action, mask, generator)
+        return self.critic(self.get_emb_representation(obs, vib_eps), action, mask, generator)
 
     def get_vib_distribution(self, obs: Obs):
         """The VIB distribution of the rgb_static encoder

@@ -10,7 +10,7 @@ kernel), so ``torch.einsum`` is their counterpart here.
 from __future__ import annotations
 
 import functools
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -29,6 +29,13 @@ __all__ = [
     "grayscale",
     "normalize",
     "augment_rgb_eval",
+    "random_shift",
+    "sample_depth_gamma",
+    "scale_depth",
+    "jet_lut",
+    "colorize_depth",
+    "augment_depth_train",
+    "augment_depth_eval",
 ]
 
 
@@ -231,3 +238,98 @@ def augment_rgb_eval(images: Tensor, out_hw: Tuple[int, int] = (128, 128)) -> Te
     x = resize_bilinear(images, out_hw)
     x = torch.clamp(x / 255.0, 0.0, 1.0)
     return normalize(x)
+
+
+# ---------------------------------------------------------------------------
+# Depth: resize -> (DrQ shift) -> scale to [0, 1] -> jet colormap ->
+# normalize; (N, H, W) float depth -> planar (N, 3, H', W')
+# ---------------------------------------------------------------------------
+
+
+def random_shift(images: Tensor, shifts: Tensor, pad: int) -> Tensor:
+    """DrQ shift of planar (N, C, H, W) images by ``shifts`` (N, 2) in
+    [0, 2*pad] with edge replication: out[y, x] = in[clamp(y + dy - pad),
+    clamp(x + dx - pad)], the JAX package's one-hot selection products as
+    two exact gathers."""
+    n, c, h, w = images.shape
+    shifts = shifts.to(device=images.device, dtype=torch.long)
+    src_y = torch.clamp(torch.arange(h, device=images.device)[None, :] + shifts[:, :1] - pad, 0, h - 1)
+    src_x = torch.clamp(torch.arange(w, device=images.device)[None, :] + shifts[:, 1:] - pad, 0, w - 1)
+    rows = torch.gather(images, 2, src_y[:, None, :, None].expand(n, c, h, w))
+    return torch.gather(rows, 3, src_x[:, None, None, :].expand(n, c, h, w))
+
+
+def sample_depth_gamma(
+    shape: float, rate: float, device, generator: Optional[torch.Generator] = None
+) -> Tensor:
+    """The DexNet multiplicative depth noise: one scalar Gamma(shape) / rate
+    a call (the JAX package's ``add_depth_noise`` multiplier)."""
+    alpha = torch.full((), float(shape), dtype=torch.float32, device=device)
+    return torch._standard_gamma(alpha, generator=generator) / rate
+
+
+def scale_depth(depth: Tensor, min_depth: float, max_depth: float) -> Tensor:
+    return torch.clamp((depth - min_depth) / (max_depth - min_depth), 0.0, 1.0)
+
+
+def _jet_lut_np(n: int = 256) -> np.ndarray:
+    """matplotlib's "jet" as the JAX package's piecewise-linear table."""
+    x = np.linspace(0.0, 1.0, n, dtype=np.float32)
+    knots = (
+        [(0.0, 0.0), (0.35, 0.0), (0.66, 1.0), (0.89, 1.0), (1.0, 0.5)],
+        [(0.0, 0.0), (0.125, 0.0), (0.375, 1.0), (0.64, 1.0), (0.91, 0.0), (1.0, 0.0)],
+        [(0.0, 0.5), (0.11, 1.0), (0.34, 1.0), (0.65, 0.0), (1.0, 0.0)],
+    )
+    return np.stack(
+        [np.interp(x, [p[0] for p in k], [p[1] for p in k]) for k in knots], axis=-1
+    ).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def jet_lut(device: torch.device) -> Tensor:
+    """The (256, 3) colormap on ``device``, made once (outside inference
+    mode, so a table first made in a rollout serves training)."""
+    with torch.inference_mode(False):
+        return torch.as_tensor(_jet_lut_np(), device=device)
+
+
+def colorize_depth(depth01: Tensor) -> Tensor:
+    """(..., H, W) in [0, 1] -> planar (..., 3, H, W): the colormap entry
+    at int(depth * 255)."""
+    idx = torch.clamp((depth01 * 255.0).to(torch.int32), 0, 255)
+    return jet_lut(depth01.device)[idx.long()].movedim(-1, -3)
+
+
+def _depth_tail(x: Tensor, min_depth: float, max_depth: float) -> Tensor:
+    return normalize(colorize_depth(scale_depth(x[:, 0], min_depth, max_depth)))
+
+
+def augment_depth_train(
+    depth: Tensor,
+    shifts: Tensor,
+    out_hw: Tuple[int, int] = (128, 128),
+    pad: int = 6,
+    min_depth: float = 0.0,
+    max_depth: float = 2.0,
+) -> Tensor:
+    """Train pipeline for a depth modality: float (..., H, W) -> resize ->
+    DrQ shift by ``shifts`` (N, 2) for the N frames -> scale -> jet ->
+    normalize: planar float32 (..., 3, H', W') in [-1, 1]."""
+    lead = depth.shape[:-2]
+    x = resize_bilinear(depth.reshape((-1, 1) + depth.shape[-2:]).float(), out_hw)
+    x = _depth_tail(random_shift(x, shifts, pad), min_depth, max_depth)
+    return x.reshape(lead + x.shape[1:])
+
+
+def augment_depth_eval(
+    depth: Tensor,
+    out_hw: Tuple[int, int] = (128, 128),
+    min_depth: float = 0.0,
+    max_depth: float = 2.0,
+) -> Tensor:
+    """Validation pipeline for a depth modality: the train pipeline
+    without the shift."""
+    lead = depth.shape[:-2]
+    x = resize_bilinear(depth.reshape((-1, 1) + depth.shape[-2:]).float(), out_hw)
+    x = _depth_tail(x, min_depth, max_depth)
+    return x.reshape(lead + x.shape[1:])

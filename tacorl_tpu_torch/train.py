@@ -20,6 +20,11 @@ scripts/train.py and is ignored here: it never moves the port to the CPU.
 CUDA-graph replays of the train step; ``core/trainer.py``).
 ``multihost=true`` raises (data-parallel training is ROADMAP Queue 1,
 item 16).
+
+A dataset's ``statistics.yaml`` action bounds go to the action decoder
+only when its class takes them: the Gaussian MDN decoder has none, and
+scripts/train.py, which passes them to any decoder, fails there with a
+TypeError (ROADMAP Queue 3, repaired on the port's side).
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from tacorl_tpu_torch.core.checkpoint import CheckpointManager
 from tacorl_tpu_torch.core.logging import MetricsSink
 from tacorl_tpu_torch.core.trainer import Trainer
 from tacorl_tpu_torch.data.datamodule import BasicDataModule
+from tacorl_tpu_torch.networks.action_decoder import ActionDecoderLogistic
 from tacorl_tpu_torch.utils import resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
@@ -45,6 +51,15 @@ def build_callbacks(cfg: dict) -> list:
         if isinstance(cb_cfg, dict) and "_target_" in cb_cfg:
             callbacks.append(instantiate(cb_cfg))
     return callbacks
+
+
+def _takes_action_bounds(decoder_cfg) -> bool:
+    """Whether the action decoder the config builds takes action bounds:
+    the logistic decoder (the default) does, the Gaussian one does not."""
+    if decoder_cfg is None:
+        return False
+    target = decoder_cfg.get("_target_", "tacorl_tpu.networks.action_decoder.ActionDecoderLogistic")
+    return issubclass(get_class(target), ActionDecoderLogistic)
 
 
 def main(argv=None, callbacks: Sequence = ()) -> Trainer:
@@ -65,7 +80,7 @@ def main(argv=None, callbacks: Sequence = ()) -> Trainer:
     # statistics.yaml action bounds override the configured defaults
     # (reference: action_decoder_logistic.py:140-158)
     stats = getattr(datamodule, "statistics", None)
-    if stats and "act_max_bound" in stats and "action_decoder" in cfg["module"]:
+    if stats and "act_max_bound" in stats and _takes_action_bounds(cfg["module"].get("action_decoder")):
         cfg["module"]["action_decoder"]["act_max_bound"] = stats["act_max_bound"]
         cfg["module"]["action_decoder"]["act_min_bound"] = stats["act_min_bound"]
 

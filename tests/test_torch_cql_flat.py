@@ -11,8 +11,9 @@ converted weights and with JAX's draws:
     applies and passed to the port.
 
 Tolerances: metrics rtol 1e-5, gradients atol 1e-5 + rtol 1e-4, post-Adam
-params atol 2.5 lr. Also the VIB encoder head, the VIB regularizer's
-refusal in both packages, and FlatPolicyAgent on vector observations."""
+params atol 2.5 lr. Also the VIB encoder head, the VIB regularizer (the
+JAX step's refusal, the port's term against the JAX one), and
+FlatPolicyAgent on vector observations."""
 
 import functools
 
@@ -323,8 +324,13 @@ def _vib_cfg():
 
 def test_vib_regularizer_raises_in_both_packages():
     """The JAX package supplies no "sample" rng to the VIB encoder's
-    applies, so its train step cannot run; the port refuses with the
-    fault's record."""
+    applies, so its train step cannot run. The port supplies the draw
+    (ROADMAP Queue 3, repaired on the port's side) and its regularizer is
+    the JAX one: a validation step's ``q1_vib_loss`` / ``q2_vib_loss``
+    equal ``vib_coefficient * KL(get_vib_distribution(obs) || N(0, I))``
+    of the JAX critics on the same weights and observations (rtol 1e-5);
+    ``tests/test_torch_cql_variants.py`` holds a whole step."""
+    from tacorl_tpu.core.distributions import DiagNormal, kl_diag_normal
     from tests.test_torch_cql import _batch
 
     tail = pallas_aug.pallas_augment_tail
@@ -336,8 +342,20 @@ def test_vib_regularizer_raises_in_both_packages():
             jmod.make_train_step()(jstate, _batch(), jax.random.key(1), {"bc_phase": jnp.asarray(0.0)})
     finally:
         pallas_aug.pallas_augment_tail = tail
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 3"):
-        CQLModule(_vib_cfg(), device="cpu")
+    obs = jmod.transforms(jax.random.key(2), _batch()["observations"], train=False)
+    want = {}
+    for q in ("q1", "q2"):
+        dist = jmod.critic_net.apply({"params": jstate.params[q]}, obs, method="get_vib_distribution")
+        prior = DiagNormal(jnp.zeros_like(dist.mean), jnp.ones_like(dist.std))
+        want[q] = float(0.01 * kl_diag_normal(dist, prior).mean())
+
+    pmod = CQLModule(_vib_cfg(), device="cpu")
+    pstate = pmod.init_state(0)
+    pmod.net.load_state_dict(cql_state_dict_from_jax(np_tree(jstate.params), np_tree(jstate.aux)))
+    metrics, _ = pmod.make_val_step()(pstate, _batch(), {"bc_phase": 0.0})
+    for q, value in want.items():
+        assert value > 0
+        np.testing.assert_allclose(float(metrics[f"{q}_vib_loss"]), value, rtol=1e-5)
 
 
 # -- the flat agent on vector observations ------------------------------------

@@ -113,8 +113,19 @@ def test_continuous_decoder_has_no_gripper_head(decoders):
     assert "gripper_fc" not in params and pdec.gripper_fc is None
     assert not any(k.startswith("gripper_fc") for k in pdec.state_dict())
     assert pdec.cont_features == ACT_DIM
-    with pytest.raises(NotImplementedError, match="bf16_matmul"):
-        ActionDecoderLogistic(**{**DEC, "bf16_matmul": True})
+    # the bf16 recurrence builds the same head and computes the JAX bf16
+    # decoder's function (rtol 2e-2, bf16 operands)
+    jdec = JaxDecoder(**{**DEC, "bf16_matmul": True})
+    bdec = ActionDecoderLogistic(**{**DEC, "bf16_matmul": True})
+    assert bdec.gripper_fc is None and bdec.rnn.bf16_matmul
+    bdec.load_state_dict(action_decoder_state_dict(np_tree(params)))
+    rs = np.random.RandomState(2)
+    plan, emb = rs.randn(2, DEC["latent_plan_dim"]).astype(np.float32), rs.randn(2, 4, OBS_DIM).astype(np.float32)
+    want = jdec.apply({"params": params}, jnp.asarray(plan), jnp.asarray(emb))
+    with torch.no_grad():
+        got = bdec(_t(plan), _t(emb))
+    for g, w in zip(got[:3], want[:3]):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=2e-2, atol=2e-2 * float(np.abs(w).max()))
 
 
 def test_continuous_decoder_loss_and_samples_match_jax(decoders):

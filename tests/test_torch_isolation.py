@@ -100,6 +100,12 @@ def probe():
         "tacorl_tpu_torch.data.online_datamodule",
         "tacorl_tpu_torch.modules.sac",
         "tacorl_tpu_torch.modules.cql_online",
+        "tacorl_tpu_torch.networks.resnet",
+        "tacorl_tpu_torch.networks.actor",
+        "tacorl_tpu_torch.networks.late_fusion",
+        "tacorl_tpu_torch.networks.plan_recognition",
+        "tacorl_tpu_torch.data.transforms",
+        "tacorl_tpu_torch.ops.image_aug",
     ],
 )
 def test_probe_imported_every_module(probe, name):
