@@ -252,6 +252,25 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 ``tacorl_tpu_torch.evaluate.main`` on the Gaussian run's
                 checkpoint for 2 short-horizon rollouts (the LSTM carry
                 through a rollout).
+ 35. train_ddp  data-parallel training through train.main under a
+                launcher's environment (ranks started as ``python3
+                chip_smoke.py --ddp-child <spec>``): (a) one rank over
+                NCCL repeats phase 31's graphed runs of both stages (K=4):
+                every row and weight bit for bit, the gradient all-reduce
+                issued from Python only in the warm-up steps and the
+                capture (then replayed from the graph), NCCL's kernels and
+                kernel 1's launches counted in the device trace of the
+                replays of steps 5-12; (b) two ranks sharing the card over
+                gloo, eager (gloo cannot be captured), one epoch of each
+                stage on the global batch of 64, every step logged,
+                against one rank of the same batches run in the phase
+                (stage 1's posterior dropout off in both): the first
+                step's row within rtol 1e-4, the weights after the epoch
+                within atol 2.5 lr a step, each later row's difference
+                printed; kernel 1 once a step (twice in stage 2) per rank
+                on its 32 x 16 frames and against its plain version on
+                them (bf16 atol 8e-3), rank 0 alone wrote; then ms/step of
+                (a) and (b) beside phase 31's and the one rank's.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -262,6 +281,7 @@ import copy
 import json
 import logging
 import math
+import os
 import re
 import shutil
 import statistics
@@ -278,6 +298,7 @@ import torch
 from tacorl_tpu_torch.callbacks.base import Callback
 from tacorl_tpu_torch.config import compose
 from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
+from tacorl_tpu_torch.core.graphs import WARMUP_STEPS
 from tacorl_tpu_torch.data.expert_play import generate_expert_play
 from tacorl_tpu_torch.data.storage import load_ep_start_end_ids
 from tacorl_tpu_torch.envs.fake_calvin import FakeCalvinEnv
@@ -304,6 +325,7 @@ from tacorl_tpu_torch.ops.shift_jitter_aug import (
     shift_jitter_normalize_geometry,
     shift_jitter_normalize_reference,
 )
+from tacorl_tpu_torch.parallel.mesh import all_reduce_mean
 
 # The card's rated rates (NVIDIA's H100 SXM data sheet, dense, at 700 W):
 # HBM bandwidth and the float32 rate outside the tensor cores.
@@ -3196,13 +3218,15 @@ class _ScanProbe(Callback):
     window opens and stopped after the last one closes) with the wrapper's
     own launch count over the same steps."""
 
-    def __init__(self, snapshot_at=(), trace=False):
+    def __init__(self, snapshot_at=(), trace=False, timed=None):
         self.snapshot_at = set(snapshot_at)
         self.chunks, self.times, self.syncs, self.snapshots, self.kl_betas = [], {}, {}, {}, []
         self.warn = self.prof = None
         self.trace = trace
+        self.timed = SCAN_TIMED if timed is None else tuple(timed)
 
     def on_epoch_start(self, trainer, module, epoch):
+        self.module = module
         self.kl_betas.append(module.step_scalars().get("kl_beta"))
 
     def on_train_batch_end(self, trainer, module, metrics, step):
@@ -3211,7 +3235,7 @@ class _ScanProbe(Callback):
         self.chunks.append(step)
         if step in self.snapshot_at:
             self.snapshots[step] = {k: v.detach().cpu().clone() for k, v in trainer.state.net.state_dict().items()}
-        if step in SCAN_TIMED:
+        if step in self.timed:
             torch.cuda.synchronize()
             self.times[step] = time.perf_counter()
         if step in SCAN_WAITS[1:]:
@@ -3223,11 +3247,13 @@ class _ScanProbe(Callback):
         if self.trace and step == SCAN_TRACED[1]:
             self.prof.__exit__(None, None, None)
             self.eager_launches = jitter_normalize.launches - self.eager_launches
+            self.eager_collectives = all_reduce_mean.calls - self.eager_collectives
         if self.trace and step == SCAN_TRACED[0]:
             from torch.profiler import ProfilerActivity, profile
 
             torch.cuda.synchronize()
             self.eager_launches = jitter_normalize.launches
+            self.eager_collectives = all_reduce_mean.calls
             self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self.prof.__enter__()
         if step in SCAN_WAITS[:-1]:
@@ -3237,7 +3263,8 @@ class _ScanProbe(Callback):
             torch.cuda.set_sync_debug_mode("warn")
 
     def ms_per_step(self) -> float:
-        return (self.times[SCAN_TIMED[1]] - self.times[SCAN_TIMED[0]]) * 1e3 / (SCAN_TIMED[1] - SCAN_TIMED[0])
+        a, b = self.timed
+        return (self.times[b] - self.times[a]) * 1e3 / (b - a)
 
 
 class _Lines(logging.Handler):
@@ -3403,6 +3430,7 @@ def _scan_stage(card: str, experiment: str, root: str, leaves, launches_per_step
     out = _scan_pair(tag, ref["args"], f"{root}/scan_{experiment}", SCAN_K,
                      f"trainer.log_every_n_steps={SCAN_LOG_EVERY}", probe=probe)
     trainer = out["trainer"]
+    params = _params(trainer)  # before the replays below step the weights on
     wrapper_count = out["wrapper_launches"]
     _check(probe.chunks == list(range(SCAN_K, trainer.global_step + 1, SCAN_K)), f"{tag}: chunks {probe.chunks}")
     default_err = _hold_params(f"{tag} vs the default eager run", _params(trainer), ref["params"], out["lr"],
@@ -3443,7 +3471,9 @@ def _scan_stage(card: str, experiment: str, root: str, leaves, launches_per_step
         f"train.main {out['wall']:.1f} s | {card}",
         flush=True,
     )
-    result = {"ms": ms, "eager_ms": out["eager_ms"], "launches": traced["jitter"], "kernel_err": kernel_err}
+    result = {"ms": ms, "eager_ms": out["eager_ms"], "launches": traced["jitter"], "kernel_err": kernel_err,
+              "args": _rerun_args(ref, f"{root}/scan_{experiment}", SCAN_K, f"trainer.log_every_n_steps={SCAN_LOG_EVERY}"),
+              "dir": f"{root}/scan_{experiment}", "params": params}
     del trainer, out
     torch.cuda.empty_cache()
     return result
@@ -4064,6 +4094,302 @@ def phase_train_variants(card: str, root: str, flat_data: str, flat_pct: float) 
     return launches
 
 
+# -- data-parallel training: the process group, the gradient all-reduce in the step graph ----------
+
+DDP_STAGES = {"play_lmp_for_rl": 1, "tacorl": 2}  # the stages and their jitter_normalize launches a step
+DDP_STEPS = 12  # train_ddp (b): one epoch of 12 steps at two ranks
+DDP_TIMED = (4, 12)  # (b)'s ms/step over steps 5-12 (a sync at both ends, epoch 1)
+DDP_TIMEOUT_S = 300  # each spawn of ranks
+# (b)'s rows after the first step against one rank's. On an H100 the sound
+# run drifts up to 2e-3 (float32 sums in another order, carried on by Adam;
+# one gripper prediction of 960 flipped); with rank 1 fed rank 0's rows the
+# rows part by 2e-2 to 6e-1 from step 2 on, and with the gradient
+# all-reduce skipped after the first step by 1.6e-2 at step 7 of stage 1
+# and from step 4 of stage 2 (that fault also parts the ranks' weights)
+DDP_ROW_RTOL = 1e-2
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _nccl_kernels(probe) -> int:
+    """NCCL's kernels in the device trace of the steps in SCAN_TRACED."""
+    from torch.autograd import DeviceType
+
+    events = probe.prof.key_averages()
+    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return sum(e.count for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
+               and "nccl" in e.key.lower())
+
+
+def _ddp_child(spec_path: str) -> int:
+    """One rank of a train_ddp run (``python3 chip_smoke.py --ddp-child
+    <spec>``): each stage of the spec through train.main, then what the
+    parent holds, in ``<out>/rank<r>.json`` (and rank 0's final weights)."""
+    import torch.distributed as dist
+
+    from tacorl_tpu_torch import train
+    from tacorl_tpu_torch.parallel import mesh
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, out = int(os.environ["RANK"]), Path(spec["out"])
+    if spec["backend"] == "gloo":  # every rank on the one card (no LOCAL_RANK): train.main keeps this group
+        dist.init_process_group("gloo", init_method=f"file://{spec['rendezvous']}", rank=rank,
+                                world_size=int(os.environ["WORLD_SIZE"]))
+    results = {}
+    for stage in spec["stages"]:
+        if spec["backend"] == "nccl":
+            os.environ["MASTER_PORT"] = str(_free_port())  # train.main makes and leaves a group a stage
+        probe = _ScanProbe(trace=stage["trace"], timed=stage["timed"])
+        jitter_normalize.launches, all_reduce_mean.calls = 0, 0
+        trainer = train.main(stage["args"], callbacks=[probe])
+        r = {"step": trainer.global_step, "launches": jitter_normalize.launches, "collectives": all_reduce_mean.calls,
+             "ms": probe.ms_per_step(), "writes": [trainer.sink.is_main, trainer.ckpt.is_main],
+             "groups": len(getattr(trainer.state.optimizer, "groups", [None])),
+             "graph": [trainer.step_graph.captures, trainer.step_graph.replays] if trainer.step_graph else None}
+        if stage["trace"]:
+            traced = _traced_steps(probe)
+            r.update(traced_steps=traced["steps"], traced_jitter=traced["jitter"], nccl=_nccl_kernels(probe),
+                     eager_launches=probe.eager_launches, eager_collectives=probe.eager_collectives)
+        if stage["kernel_leaves"]:
+            batch = trainer._current_batch
+            r["frames"] = [list(batch[leaf]["rgb_static"].shape[:-3]) for leaf in stage["kernel_leaves"]]
+            r["kernel_err"] = _shard_kernel_check(stage["name"], probe, batch, stage["kernel_leaves"])
+        if stage["save_params"]:
+            torch.save(_params(trainer), out / f"{stage['name']}_params_rank{rank}.pt")
+        results[stage["name"]] = r
+        del trainer
+        torch.cuda.empty_cache()
+    if spec["backend"] == "gloo":
+        mesh.destroy_distributed()
+    (out / f"rank{rank}.json").write_text(json.dumps(results))
+    return 0
+
+
+def _shard_kernel_check(tag: str, probe, batch, leaves) -> float:
+    """jitter_normalize against its plain version on a rank's own frames (the
+    last batch it trained on), resized and shifted to 128x128 bf16 with the
+    transform's ranges."""
+    cfg = probe.module.transforms.cfg["rgb_static"]
+    g = torch.Generator(device="cuda").manual_seed(17)
+    pad, size = int(cfg["pad"]), tuple(cfg["size"])
+    worst = 0.0
+    for leaf in leaves:
+        frames = batch[leaf]["rgb_static"]
+        frames = frames.reshape((-1,) + tuple(frames.shape[-3:])).movedim(-1, -3).contiguous()
+        n = frames.shape[0]
+        shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device="cuda")
+        x = image_aug.resize_shift(frames, shifts, size, pad, dtype=torch.bfloat16).contiguous()
+        f = sample_jitter_factors(n, g, brightness=cfg["brightness"], contrast=cfg["contrast"],
+                                  hue=cfg["hue"], prob=cfg["jitter_prob"])
+        worst = max(worst, _compare(jitter_normalize(x, f), jitter_normalize_reference(x, f), BF16_ATOL,
+                                    f"train_ddp/{tag}: jitter_normalize vs plain on a rank's {leaf} frames"))
+    return worst
+
+
+def _spawn_ranks(tag: str, spec: dict, world: int, env_of) -> list:
+    """``world`` ranks of this script in ``--ddp-child`` mode, with the
+    launcher's environment (``env_of(rank)`` adds to it); waits for all of
+    them, ends them all if one fails or the wait times out, and returns each
+    rank's results."""
+    out = Path(spec["out"])
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "spec.json").write_text(json.dumps(spec))
+    base = {k: v for k, v in os.environ.items() if k not in ("LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(open(out / f"rank{r}.log", "w"))
+            env = dict(base, WORLD_SIZE=str(world), RANK=str(r), **env_of(r))
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--ddp-child",
+                                           str(out / "spec.json")], env=env, stdout=logs[-1],
+                                          stderr=subprocess.STDOUT))
+        deadline = time.time() + DDP_TIMEOUT_S
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in logs:
+            f.close()
+    failed = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if failed:
+        tails = "\n".join(f"--- rank {r}:\n" + (out / f"rank{r}.log").read_text()[-3000:] for r in failed)
+        raise RuntimeError(f"{tag}: rank(s) {failed} failed (exit codes {[p.returncode for p in procs]})\n{tails}")
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(world)]
+
+
+def _rows_without_time(run_dir) -> list:
+    return [{k: v for k, v in row.items() if k != "time"} for row in _metrics_rows(run_dir)]
+
+
+def _ddp_one_rank(card: str, root: str, scan: dict) -> dict:
+    """(a) One rank under the launcher's environment, NCCL: both stages as
+    phase 31's graphed runs (K = 4), held bit for bit against them."""
+    stages = [{"name": e, "args": [a for a in scan[e]["args"] if not a.startswith("run_dir=")]
+               + [f"run_dir={root}/w1_{e}"], "trace": True, "timed": list(SCAN_TIMED), "kernel_leaves": [],
+               "save_params": True} for e in DDP_STAGES]
+    t0 = time.perf_counter()
+    res = _spawn_ranks("train_ddp (a)", {"backend": "nccl", "stages": stages, "out": f"{root}/w1"}, 1,
+                       lambda r: {"LOCAL_RANK": "0", "MASTER_ADDR": "127.0.0.1"})[0]
+    wall = time.perf_counter() - t0
+    lines = []
+    for e, lps in DDP_STAGES.items():
+        r, tag = res[e], f"train_ddp/{e} (a)"
+        got_rows, want_rows = _rows_without_time(f"{root}/w1_{e}"), _rows_without_time(scan[e]["dir"])
+        _check(got_rows == want_rows, f"{tag}: the one-rank NCCL run's rows are not phase 31's graphed run's")
+        params = torch.load(f"{root}/w1/{e}_params_rank0.pt", weights_only=True)
+        _check(params.keys() == scan[e]["params"].keys(), f"{tag}: other weights than phase 31's")
+        differ = [k for k, v in params.items() if not torch.equal(v, scan[e]["params"][k])]
+        _check(not differ, f"{tag}: {len(differ)} weights not phase 31's bit for bit, e.g. {differ[:3]}, by up "
+               f"to {max((params[k] - scan[e]['params'][k]).abs().max().item() for k in differ) if differ else 0}")
+        _check(r["graph"] == [1, TRAIN_STEPS], f"{tag}: captures and replays {r['graph']}")
+        _check(r["traced_jitter"] == lps * r["traced_steps"] and r["eager_launches"] == 0,
+               f"{tag}: {r['traced_jitter']} jitter_normalize launches in the trace of {r['traced_steps']} replays")
+        # Python issues a step's all-reduces in the two warm-up steps and the
+        # capture only; after that each replay runs them from the graph. The
+        # rest: one metric sync a logging step, one a validation pass
+        per_step, rest = divmod(r["collectives"] - TRAIN_STEPS // SCAN_LOG_EVERY - 2, WARMUP_STEPS + 1)
+        _check(rest == 0 and per_step >= (1 if e == "play_lmp_for_rl" else r["groups"]),
+               f"{tag}: {r['collectives']} all-reduces from Python")
+        _check(r["eager_collectives"] == 1, f"{tag}: {r['eager_collectives']} from Python over steps 5-12")
+        lines.append(f"{e}: {len(got_rows)} rows and every weight bit-equal to phase 31's graphed run; "
+                     f"{per_step} gradient all-reduce(s) a step captured in the graph ({r['collectives']} from "
+                     f"Python in the whole run: {WARMUP_STEPS} warm-up steps and the capture, "
+                     f"{TRAIN_STEPS // SCAN_LOG_EVERY} logging steps, 2 validation passes); in the device trace "
+                     f"of the replays of steps {SCAN_TRACED[0] + 1}-{SCAN_TRACED[1]}: {r['nccl']} NCCL kernels, "
+                     f"{r['traced_jitter']} jitter_normalize launches; {r['ms']:.3f} ms/step over steps "
+                     f"{SCAN_TIMED[0] + 1}-{SCAN_TIMED[1]} (phase 31: {scan[e]['ms']:.3f})")
+    print(f"[train_ddp] (a) one rank, NCCL, under the launcher's environment, K={SCAN_K}: " + "; ".join(lines)
+          + f" | both stages {wall:.1f} s | {card}", flush=True)
+    return res
+
+
+def _ddp_two_ranks(card: str, root: str, scan: dict) -> tuple:
+    """(b) Two ranks sharing the one card over gloo, eager (gloo collectives
+    cannot be captured), one epoch of each stage on the global batch of 64,
+    held against one rank of the same batches run here, every step logged:
+    the first step's row within rtol 1e-4 (both start from the same
+    weights), every later row within DDP_ROW_RTOL (float32 sums in another
+    order, which Adam carries from step to step), the two ranks' weights
+    after the epoch bit-equal (one all-reduced gradient, one update) and
+    within atol 2.5 lr a step of one rank's. Stage 1's posterior dropout
+    is off in both: dropout draws per rank (ROADMAP Queue 3)."""
+    drop = ("run_dir=", "trainer.steps_per_call=", "trainer.max_steps=")
+    args = {e: [a for a in scan[e]["args"] if not a.startswith(drop)]
+            + ["trainer.steps_per_call=1", f"trainer.max_steps={DDP_STEPS}", "trainer.log_every_n_steps=1"]
+            + (["module.plan_recognition.dropout_p=0"] if e == "play_lmp_for_rl" else []) for e in DDP_STAGES}
+    stages = [{"name": e, "args": args[e] + [f"run_dir={root}/w2_{e}"], "trace": False, "timed": list(DDP_TIMED),
+               "kernel_leaves": ["states"] + (["goal"] if e == "tacorl" else []), "save_params": True}
+              for e in DDP_STAGES]
+    t0 = time.perf_counter()
+    res = _spawn_ranks("train_ddp (b)", {"backend": "gloo", "rendezvous": f"{root}/w2/rendezvous",
+                                         "stages": stages, "out": f"{root}/w2"}, 2, lambda r: {})
+    wall = time.perf_counter() - t0
+    from tacorl_tpu_torch import train
+
+    one_ms, lines = {}, []
+    for e, lps in DDP_STAGES.items():
+        tag = f"train_ddp/{e} (b)"
+        probe = _ScanProbe(timed=DDP_TIMED)
+        one = train.main(args[e] + [f"run_dir={root}/w2one_{e}"], callbacks=[probe])
+        one_ms[e], one_params, lr = probe.ms_per_step(), _params(one), _max_lr(probe.module.cfg)
+        del one
+        for rank, rr in enumerate(res):
+            r = rr[e]
+            _check(r["step"] == DDP_STEPS and r["launches"] == lps * DDP_STEPS,
+                   f"{tag} rank {rank}: {r['launches']} jitter_normalize launches in {r['step']} steps")
+            _check(r["frames"][0] == [64 // 2, 16] and r["writes"] == [rank == 0] * 2,
+                   f"{tag} rank {rank}: frames {r['frames']}, writes {r['writes']}")
+        rows = _metrics_rows(f"{root}/w2_{e}")
+        keys = [(row["step"], tuple(sorted(row))) for row in rows]
+        _check(len(keys) == len(set(keys)), f"{tag}: a row written twice")
+        first, drift = _hold_ddp_rows(tag, f"{root}/w2_{e}", f"{root}/w2one_{e}")
+        params, params1 = (torch.load(f"{root}/w2/{e}_params_rank{r}.pt", weights_only=True) for r in range(2))
+        apart = [k for k, v in params.items() if not torch.equal(v, params1[k])]
+        _check(not apart, f"{tag}: the ranks' weights differ after {DDP_STEPS} steps: {len(apart)} tensors, e.g. "
+               f"{apart[:3]}")
+        param_err = _hold_params(tag, params, one_params, lr, DDP_STEPS)
+        err = max(r[e]["kernel_err"] for r in res)
+        lines.append(f"{e}: the first step's row within {first:.3g} of one rank's (rtol 1e-4), later rows "
+                     f"within {max(drift.values()):.3g} (rtol {DDP_ROW_RTOL:g}; steps {_drift_line(drift)}), the "
+                     f"ranks' weights bit-equal, within {param_err:.3g} of one rank's at step {DDP_STEPS} (atol "
+                     f"{2.5 * lr * DDP_STEPS:.3g}); each rank "
+                     f"{res[0][e]['launches']} jitter_normalize launches in {DDP_STEPS} steps on its "
+                     f"{'x'.join(map(str, res[0][e]['frames'][0]))} frames, vs plain on its frames max abs err "
+                     f"{err:.3g} (atol {BF16_ATOL}); rank 0 alone wrote; {res[0][e]['ms']:.3f} ms/step over steps "
+                     f"{DDP_TIMED[0] + 1}-{DDP_TIMED[1]} (one rank: {one_ms[e]:.3f})")
+        torch.cuda.empty_cache()
+    print(f"[train_ddp] (b) two ranks on the one card, gloo, eager, a global batch of 64 (32 a rank): "
+          + "; ".join(lines) + f" | the two ranks' stages {wall:.1f} s | {card}", flush=True)
+    return res, one_ms
+
+
+def _hold_ddp_rows(tag: str, got_dir: str, want_dir: str) -> tuple:
+    """Each train and validation row of ``got_dir`` against the row of the
+    same step and keys in ``want_dir``: the first step's within rtol 1e-4,
+    every later step's within DDP_ROW_RTOL. Returns the first step's
+    largest relative difference and each later step's."""
+    def kind(row):
+        return tuple(sorted(k for k in row if k not in ("step", "time")))
+
+    want = {(r["step"], kind(r)): r for r in _metrics_rows(want_dir)}
+    got = [r for r in _metrics_rows(got_dir) if any(k.startswith(("train/", "validation/")) for k in r)]
+    errs = {}
+    for row in got:
+        ref = want.get((row["step"], kind(row)))
+        _check(ref is not None, f"{tag}: the one-rank run logged no row like step {row['step']}'s")
+        err, key = max((abs(row[k] - ref[k]) / max(abs(ref[k]), 1e-6), k) for k in kind(row))
+        errs[row["step"]] = max(err, errs.get(row["step"], 0.0))
+        rtol = 1e-4 if row["step"] == 1 else DDP_ROW_RTOL
+        _check(err <= rtol, f"{tag}: {key} at step {row['step']} differs from one rank's by {err:.3g} (rtol "
+               f"{rtol:g}): {row[key]} vs {ref[key]}")
+    _check(min(errs) == 1 and len(errs) > 1, f"{tag}: rows at steps {sorted(errs)}")
+    return errs.pop(1), errs
+
+
+def _drift_line(drift: dict) -> str:
+    return ", ".join(f"{s}: {e:.2g}" for s, e in sorted(drift.items()))
+
+
+def phase_train_ddp(card: str, root: str, scan: dict) -> dict:
+    """Data-parallel training through ``python -m tacorl_tpu_torch.train``'s
+    entry under a launcher's environment: (a) one rank over NCCL, K = 4,
+    bit-equal to phase 31's graphed runs, the gradient all-reduce captured
+    in the step graph; (b) two ranks on the one card over gloo, eager, held
+    to one rank of the same global batch. NCCL refuses two ranks on one
+    card; results/torch_r12_ddp/run.sh runs NCCL at 2 and 4 cards."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    one = _ddp_one_rank(card, root, scan)
+    two, two_ref = _ddp_two_ranks(card, root, scan)
+    print(f"[train_ddp] ms/step, stage 1 / stage 2: (a) one NCCL rank K={SCAN_K} "
+          f"{one['play_lmp_for_rl']['ms']:.3f} / {one['tacorl']['ms']:.3f}, phase 31 graphed "
+          f"{scan['play_lmp_for_rl']['ms']:.3f} / {scan['tacorl']['ms']:.3f}; (b) two gloo ranks eager "
+          f"{two[0]['play_lmp_for_rl']['ms']:.3f} / {two[0]['tacorl']['ms']:.3f}, one rank eager "
+          f"{two_ref['play_lmp_for_rl']:.3f} / {two_ref['tacorl']:.3f} | the phase took "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return {
+        "launches": {
+            **{f"train_ddp/nccl_w1/{e}/steps_{SCAN_TRACED[0] + 1}-{SCAN_TRACED[1]}": one[e]["traced_jitter"]
+               for e in DDP_STAGES},
+            **{f"train_ddp/gloo_w2/{e}/rank{r}": two[r][e]["launches"] for e in DDP_STAGES for r in range(2)},
+        },
+        "max_abs_err": max(r[e]["kernel_err"] for r in two for e in DDP_STAGES),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4120,6 +4446,7 @@ def main() -> int:
         phase_reference_variants()
         variants = phase_slice_variants(card)
         launches_variants = phase_train_variants(card, f"{tmp}/variants", flat_data, pct)
+        ddp = phase_train_ddp(card, f"{tmp}/ddp", scan)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -4139,7 +4466,10 @@ def main() -> int:
         f"slice_variants/gaussian_graph/{VARIANT_K}_replays": variants["gaussian"]["graph"],
         "slice_variants/cql": variants["cql"], "slice_variants/depth": variants["depth"]["jitter_normalize"],
         **{f"train_variants/{e}": n for e, n in launches_variants.items()},
+        # (a) counted in the device trace of the rank's graph replays of steps 5-12; (b) by the wrapper, a rank's
+        **ddp["launches"],
     }
+    kernel["max_abs_err_train_ddp"] = ddp["max_abs_err"]
     kernel["max_abs_err_train_scan"] = max(v["kernel_err"] for v in scan.values())
     first = online_kernel[ONLINE_VISUAL[0]]
     kernel.update(
@@ -4173,4 +4503,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--ddp-child"]:
+        sys.exit(_ddp_child(sys.argv[2]))
     sys.exit(main())

@@ -16,7 +16,12 @@ Under the trainer's K-step dispatch the callback runs once a chunk, on the
 stacked (K, B, ...) chunk, as the JAX callback does: on vector observations
 the std is taken over the whole chunk. On image observations the JAX
 callback fails (its conv encoder rejects the 5-d frames), so the port
-raises ``NotImplementedError(CHUNK_FAULT)`` (ROADMAP Queue 3)."""
+raises ``NotImplementedError(CHUNK_FAULT)`` (ROADMAP Queue 3).
+
+Data-parallel: the batch is a rank's rows, so the masks are drawn as that
+rank's rows of the global batch's (``parallel.mesh.sharded_draws``) and
+each batch's std is averaged over the ranks: every rank sees the global
+batch's statistic and grows the horizon at the same epoch."""
 
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from torch import Tensor
 
 from tacorl_tpu_torch.callbacks.base import Callback
 from tacorl_tpu_torch.data.loader import flatten
+from tacorl_tpu_torch.parallel.mesh import sharded_draws, sync_metrics
 
 __all__ = ["CHUNK_FAULT", "IncreaseHorizonUncertainty"]
 
@@ -86,7 +92,9 @@ class IncreaseHorizonUncertainty(Callback):
             return
         if _stacked_images(batch):
             raise NotImplementedError(CHUNK_FAULT)
-        self._stds.append(self.mc_std(module, trainer.state.net, batch, generator=module.generator))
+        with sharded_draws():
+            std = self.mc_std(module, trainer.state.net, batch, generator=module.generator)
+        self._stds.append(sync_metrics({"std": std})["std"])
 
     def on_epoch_end(self, trainer, module, epoch: int) -> None:
         if not self._active(trainer) or not self._stds:

@@ -22,8 +22,15 @@ Each run builds the module's agent over ``trainer.state``
 (``evaluation/agents.py:make_agent``) and a fresh rollout manager
 (``evaluation/rollout_manager.py``, its generator seeded anew). The agents
 act under ``torch.inference_mode()`` on the training net and leave it in
-eval mode; the train steps set their own modes. The port runs one process, rank 0 of a world of 1, until ROADMAP
-Queue 1, item 16 (data-parallel) shards the episodes.
+eval mode; the train steps set their own modes.
+
+Data-parallel: the episodes are sharded round-robin over the ranks of the
+process group (``parallel/mesh.py``), with the goal list padded so every
+rank evaluates ceil(k / world) episodes (rollout.py:161-170), and
+``_log`` averages each metric over the ranks, as the JAX callback's
+``process_allgather`` does: equal counts make that the global metric, the
+same on every rank. The D4RL callback gathers every rank's episodes and
+takes their mean.
 """
 
 from __future__ import annotations
@@ -41,12 +48,11 @@ from tacorl_tpu_torch.evaluation.rollout_generator import (
     LongHorizonRolloutGenerator,
     SingleTaskRolloutGenerator,
 )
+from tacorl_tpu_torch.parallel.mesh import gather_objects, rank, world
 
 logger = logging.getLogger("tacorl_tpu_torch")
 
 __all__ = ["RolloutCallback", "RolloutLongHorizonCallback", "RolloutD4RLCallback"]
-
-RANK, WORLD = 0, 1  # one process until ROADMAP item 16
 
 
 class _BaseRolloutCallback(Callback):
@@ -139,13 +145,18 @@ class _BaseRolloutCallback(Callback):
     def _goal_list(self, num_rollouts: int, num_available: int) -> List[int]:
         """This process's share of rollout indices, padded so every process
         evaluates ceil(k/world) episodes (rollout.py:161-170)."""
-        num_goals = WORLD * math.ceil(num_rollouts / WORLD)
-        goals = [g for g in range(num_goals) if g % WORLD == RANK]
+        r, w = rank(), world()
+        num_goals = w * math.ceil(num_rollouts / w)
+        goals = [g for g in range(num_goals) if g % w == r]
         if num_available <= 0:
             return []
         return [g % num_available for g in goals]
 
     def _log(self, trainer, metrics: Dict[str, float]) -> None:
+        if world() > 1:
+            keys = sorted(metrics)
+            mean = np.mean([[m[k] for k in keys] for m in gather_objects(metrics)], axis=0)
+            metrics = dict(zip(keys, mean.tolist()))
         trainer.sink.log(metrics, trainer.global_step)
         trainer._last_val_metrics.update(metrics)
 
@@ -259,7 +270,7 @@ class RolloutCallback(_BaseRolloutCallback):
             for task, entries in gen.get_rollout_tasks().items()
             for idx in range(len(entries))
         ]
-        episodes = episodes[RANK::WORLD][: self.num_rollouts]
+        episodes = episodes[rank()::world()][: self.num_rollouts]
         if not episodes:
             return None
         return _summarize([
@@ -357,10 +368,14 @@ class RolloutD4RLCallback(Callback):
             return
         agent, manager = make_d4rl_agent(module, trainer.state, self.plan_duration)
         successes, scores = [], []
-        for _ in list(range(self.num_rollouts))[RANK::WORLD]:
+        for _ in list(range(self.num_rollouts))[rank()::world()]:
             out = manager.episode_rollout(agent, self.env)
             successes.append(float(out["success"]))
             scores.append(float(out["score"]))
+        if world() > 1:
+            shares = gather_objects((successes, scores))
+            successes = [x for share, _ in shares for x in share]
+            scores = [x for _, share in shares for x in share]
         if not successes:
             return
         result = {"val_accuracy": float(np.mean(successes)), "val_score": float(np.mean(scores))}

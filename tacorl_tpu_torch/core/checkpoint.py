@@ -8,6 +8,11 @@ port's own format:
                                     reference layout) and the optimizer's
     <dir>/ckpts/metrics.json        step -> monitored metric
 
+Under a process group rank 0 alone writes (the config, each save, the
+metrics file, and retention's deletions) and every rank waits at a barrier
+after a save, so every rank can restore it; every rank keeps the same
+scores in memory, so ``best_step`` agrees.
+
 Retention is the JAX package's: at most ``max_to_keep`` saves, the latest
 always kept, the rest the best by ``monitor`` (``mode`` max or min). A save
 without the metric scores NaN, which ranks last in max mode and, as in the
@@ -32,6 +37,7 @@ from typing import Any, Dict, List, Optional, Union
 import torch
 
 from tacorl_tpu_torch.config import get_class, merge
+from tacorl_tpu_torch.parallel.mesh import barrier, rank
 
 __all__ = ["CheckpointManager", "freeze_mask", "graft", "load_module_from_checkpoint"]
 
@@ -47,7 +53,9 @@ class CheckpointManager:
     ):
         self.dir = Path(directory).expanduser()
         self.ckpt_dir = self.dir / "ckpts"
-        self.ckpt_dir.mkdir(parents=True, exist_ok=True)
+        self.is_main = rank() == 0
+        if self.is_main:
+            self.ckpt_dir.mkdir(parents=True, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.max_to_keep = max_to_keep
@@ -57,8 +65,9 @@ class CheckpointManager:
             if self._metrics_file.is_file()
             else {}
         )
-        if config is not None:
+        if config is not None and self.is_main:
             (self.dir / "config.json").write_text(json.dumps(config, indent=1))
+        barrier()
 
     def _path(self, step: int) -> Path:
         return self.ckpt_dir / str(step) / "state.pt"
@@ -68,17 +77,20 @@ class CheckpointManager:
     ) -> None:
         """``state`` is a TrainState (or anything with ``state_dict``);
         ``metrics`` may hold the monitored value of this save."""
-        path = self._path(step)
-        path.parent.mkdir(parents=True, exist_ok=True)
-        partial = path.with_suffix(".tmp")
-        torch.save(state.state_dict(), partial)
-        partial.replace(path)
+        if self.is_main:
+            path = self._path(step)
+            path.parent.mkdir(parents=True, exist_ok=True)
+            partial = path.with_suffix(".tmp")
+            torch.save(state.state_dict(), partial)
+            partial.replace(path)
         if metrics and self.monitor and self.monitor in metrics:
             self._metrics[str(step)] = float(metrics[self.monitor])
         else:
             self._metrics.setdefault(str(step), float("nan"))
         self._retention()
-        self._metrics_file.write_text(json.dumps(self._metrics))
+        if self.is_main:
+            self._metrics_file.write_text(json.dumps(self._metrics))
+        barrier()
 
     def _retention(self) -> None:
         steps = sorted(int(s) for s in self._metrics)
@@ -97,7 +109,8 @@ class CheckpointManager:
         keep = set(candidates[: self.max_to_keep - 1]) | {last}
         for s in steps:
             if s not in keep:
-                shutil.rmtree(self._path(s).parent, ignore_errors=True)
+                if self.is_main:
+                    shutil.rmtree(self._path(s).parent, ignore_errors=True)
                 self._metrics.pop(str(s), None)
 
     def all_steps(self) -> List[int]:

@@ -23,6 +23,15 @@ other draws or other scalar names captures again; it never runs eagerly.
 Any failure of the warm-up, the capture or a replay raises, naming the
 module and what failed.
 
+Under a process group the step's gradient all-reduce
+(``parallel/mesh.py:all_reduce_mean``) is captured in the graph, so a
+chunk stays one replay a step on each rank: every rank runs the same two
+warm-up steps (their collectives in the same order, after the state's
+broadcast made the communicator) and captures the same step. Only NCCL
+collectives can be captured: under a gloo group (the CPU tests, two ranks
+sharing one card) a capture raises, naming the reason, and such a run
+takes ``trainer.steps_per_call=1``.
+
 ``seed_generators`` and ``step_seed`` are the per-step seeding both paths
 share (``core/trainer.py``).
 """
@@ -37,6 +46,7 @@ import torch
 
 from tacorl_tpu_torch.core.optimizers import set_capturable, torch_optimizers
 from tacorl_tpu_torch.data.loader import flatten, unflatten
+from tacorl_tpu_torch.parallel.mesh import backend, fold_rank
 
 __all__ = ["StepGraph", "seed_generators", "step_seed"]
 
@@ -50,14 +60,16 @@ def step_seed(seed: int, index: int) -> int:
 
 def seed_generators(module, device: torch.device, seed: int, index: int) -> None:
     """Seed the module's generator and the device's default generator (which
-    dropout draws from) from (seed, index)."""
+    dropout draws from) from (seed, index). At more than one rank the
+    default generator's seed has the rank folded in: dropout cannot draw
+    the global batch's masks, so each rank draws its own (ROADMAP Queue 3)."""
     s = step_seed(seed, index)
     if getattr(module, "generator", None) is not None:
         module.generator.manual_seed(s)
     if device.type == "cuda":
-        torch.cuda.default_generators[device.index or torch.cuda.current_device()].manual_seed(s)
+        torch.cuda.default_generators[device.index or torch.cuda.current_device()].manual_seed(fold_rank(s))
     else:
-        torch.default_generator.manual_seed(s)
+        torch.default_generator.manual_seed(fold_rank(s))
 
 
 def _inputs(batch, draws) -> List[Tuple[Tuple, Any]]:
@@ -88,6 +100,12 @@ class StepGraph:
         self.graph = self.batch = None
         self.captures = self.replays = 0
 
+    def release(self) -> None:
+        """Free the captured graph (its memory pool and, under NCCL, its
+        hold on the communicator); ``captures`` and ``replays`` stay. The
+        next call captures again."""
+        self.graph = self.metrics = self.batch = self.key = None
+
     def _fail(self, what: str, err: Exception) -> RuntimeError:
         return RuntimeError(f"{self.name}: CUDA graph {what} of the train step failed: {err}")
 
@@ -116,6 +134,12 @@ class StepGraph:
     # -- capture ---------------------------------------------------------------
 
     def _capture(self, state, pairs, scalars, key) -> None:
+        if backend() not in (None, "nccl"):
+            raise RuntimeError(
+                f"{self.name}: a CUDA graph of the train step cannot capture {backend()} "
+                "collectives (the gradient all-reduce); train with NCCL or with "
+                "trainer.steps_per_call=1"
+            )
         self.graph = self.metrics = self.batch = None
         self.inputs = [
             torch.empty(x.shape, dtype=x.dtype, device=self.device) if torch.is_tensor(x) else None

@@ -1,9 +1,10 @@
 """Metrics sink (port of tacorl_tpu/core/logging.py): JSONL file + console,
 optional wandb when it is installed.
 
-Metric dicts are logged with ``<split>/<name>`` keys. The port runs one
-process, so it is rank 0 and always writes (data-parallel training is
-ROADMAP Queue 1, item 16). Values reach ``log`` as Python floats: the
+Metric dicts are logged with ``<split>/<name>`` keys. Only rank 0 of a
+process group writes (the file, wandb and the console), as the JAX sink
+gates on ``jax.process_index()``; the trainer hands every rank the same
+(rank-averaged) metrics. Values reach ``log`` as Python floats: the
 trainer copies a step's metrics to the host in one batch before it logs.
 """
 
@@ -16,6 +17,8 @@ from pathlib import Path
 from typing import Any, Dict, Optional, Union
 
 import numpy as np
+
+from tacorl_tpu_torch.parallel.mesh import rank
 
 logger = logging.getLogger("tacorl_tpu_torch")
 
@@ -34,14 +37,15 @@ class MetricsSink:
         wandb_kwargs: Optional[dict] = None,
         console_every: int = 50,
     ):
+        self.is_main = rank() == 0
         self.console_every = console_every
         self._file = None
-        if directory is not None:
+        if directory is not None and self.is_main:
             path = Path(directory).expanduser()
             path.mkdir(parents=True, exist_ok=True)
             self._file = open(path / "metrics.jsonl", "a")
         self._wandb = None
-        if use_wandb:
+        if use_wandb and self.is_main:
             try:
                 import wandb
 
@@ -64,7 +68,7 @@ class MetricsSink:
             self._file.flush()
         if self._wandb is not None:
             self._wandb.log(flat, step=int(step))
-        if self.console_every and step % self.console_every == 0:
+        if self.is_main and self.console_every and step % self.console_every == 0:
             brief = ", ".join(f"{k}={v:.4g}" for k, v in list(flat.items())[:6])
             logger.info("step %d | %s", step, brief)
 

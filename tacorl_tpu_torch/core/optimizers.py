@@ -5,7 +5,11 @@ action_decoder) owns its parameters and one torch Adam with optax.adam's
 defaults (b1 0.9, b2 0.999, eps 1e-8), optionally behind global-norm
 clipping, ``optax.chain(optax.clip_by_global_norm(c), optax.adam(lr))``.
 A group steps on the gradients it is handed, so a loss reaches only the
-group its gradients were taken for.
+group its gradients were taken for. Under a process group the gradients
+are first averaged over the ranks (``parallel/mesh.py:all_reduce_mean``,
+one collective a group, before the clip, so the clip sees the global
+gradient); ``reduce_gradients`` does the same for a plain optimizer's
+``.grad`` before its gradient norm and step.
 
 ``set_capturable`` switches any of the port's optimizers between the eager
 mode and ``capturable=True``, the mode a CUDA graph of the train step needs
@@ -21,7 +25,12 @@ from typing import Dict, List, Optional, Sequence
 import torch
 from torch import Tensor
 
-__all__ = ["GroupOptimizer", "clip_by_global_norm", "global_norm", "set_capturable", "torch_optimizers"]
+from tacorl_tpu_torch.parallel.mesh import all_reduce_mean
+
+__all__ = [
+    "GroupOptimizer", "clip_by_global_norm", "global_norm", "reduce_gradients", "set_capturable",
+    "torch_optimizers",
+]
 
 
 def global_norm(tensors: Sequence[Tensor]) -> Tensor:
@@ -65,8 +74,10 @@ class GroupOptimizer:
         return self.groups[name].params
 
     def step_group(self, name: str, grads: Sequence[Tensor]) -> None:
-        """One update of group ``name`` with ``grads``, one per parameter."""
+        """One update of group ``name`` with ``grads``, one per parameter
+        (averaged over the ranks first)."""
         group = self.groups[name]
+        grads = all_reduce_mean(grads)
         if group.clip is not None:
             grads = clip_by_global_norm(grads, group.clip)
         for p, g in zip(group.params, grads):
@@ -81,6 +92,12 @@ class GroupOptimizer:
     def load_state_dict(self, state: Dict[str, dict]) -> None:
         for name, g in self.groups.items():
             g.optimizer.load_state_dict(state[name])
+
+
+def reduce_gradients(params) -> List[Tensor]:
+    """Each parameter's ``.grad`` averaged over the ranks, in place (one
+    collective a dtype); returns the gradients that exist."""
+    return all_reduce_mean([p.grad for p in params if p.grad is not None])
 
 
 def torch_optimizers(optimizer) -> List[torch.optim.Optimizer]:

@@ -35,6 +35,19 @@ gets the stacked chunk as ``_current_batch``) and the stop check run once a
 chunk, so ``max_steps`` may be overshot by up to K - 1. Online modules
 (``supports_scan = False``) train one step at a time under any K.
 
+Data-parallel (W ranks under a process group, ``parallel/mesh.py``), as
+the JAX trainer's one controller over a ``dp`` mesh: ``batch_size`` is the
+global batch, and each rank's loader gives it its rows of every global
+batch (train and validation; ``limit_val_batches`` counts global batches);
+the state is broadcast from rank 0 after init or resume; the steps run
+inside ``sharded_draws``, so a rank's draws are its rows of the global
+batch's; the steps average their gradients over the ranks; a logging
+step's metrics and the validation means are averaged over the ranks
+before they reach the host, so every rank logs, ranks checkpoints and
+stops on the same numbers; rank 0 alone writes (``core/logging.py``,
+``core/checkpoint.py``, the callbacks' state). At one rank each of these
+changes nothing.
+
 Randomness: the JAX train step folds its key with ``state.step``, so a
 resumed run draws what an uninterrupted one draws. The port gets the same:
 before each train step the module's ``torch.Generator`` and the device's
@@ -63,6 +76,7 @@ from tacorl_tpu_torch.core.graphs import seed_generators, step_seed
 from tacorl_tpu_torch.core.logging import MetricsSink
 from tacorl_tpu_torch.core.optimizers import set_capturable
 from tacorl_tpu_torch.data.loader import DevicePut, device_prefetch
+from tacorl_tpu_torch.parallel.mesh import batch_sharding, rank, replicate, sharded_draws, sync_metrics
 from tacorl_tpu_torch.utils import resolve_device
 
 logger = logging.getLogger("tacorl_tpu_torch")
@@ -161,7 +175,12 @@ class Trainer:
         return self.draw_source(split, index) or {}
 
     def _loader(self, loader):
+        """The loader as this trainer runs it: pinned on a card, and giving
+        this rank its rows of each global batch (a ``batch_size`` the ranks
+        do not divide raises)."""
         loader.pin_memory = self.device.type == "cuda"
+        loader.shard = batch_sharding()
+        loader.shard.rows(loader.batch_size)
         return loader
 
     # -- main loop -----------------------------------------------------------
@@ -189,6 +208,7 @@ class Trainer:
                 # on by that draw, so an online run draws and drops it too
                 next(iter(train_loader))
             self.state = module.init_state(self.seed)
+        replicate(self.state)
         use_scan = self.steps_per_call > 1 and getattr(module, "supports_scan", False)
         if use_scan:
             # never more steps a call than an epoch gives (partial chunks are
@@ -229,7 +249,7 @@ class Trainer:
                 self.batch_wait_ms.append((time.perf_counter() - t0) * 1e3)
                 self._current_batch = batch  # callbacks may probe it
                 if use_scan:
-                    with record_function("trainer/train_step"):
+                    with record_function("trainer/train_step"), sharded_draws():
                         self.state, metrics = train_step(
                             self.state, batch, module.step_scalars(), seed=self.seed,
                             draw_source=self.draw_source,
@@ -238,7 +258,7 @@ class Trainer:
                 else:
                     seed_generators(module, self.device, self.seed, self.global_step)
                     draws = self._draws("train", self.global_step)
-                    with record_function("trainer/train_step"):
+                    with record_function("trainer/train_step"), sharded_draws():
                         self.state, metrics = train_step(
                             self.state, batch, module.step_scalars(), **draws
                         )
@@ -247,7 +267,7 @@ class Trainer:
                 n_batches += step_inc
                 if self.global_step % self.log_every_n_steps == 0:
                     with record_function("trainer/log"):
-                        self.sink.log(_host_floats(metrics), self.global_step, prefix="train")
+                        self.sink.log(_host_floats(sync_metrics(metrics)), self.global_step, prefix="train")
                 self._cb("on_train_batch_end", module, metrics, self.global_step)
                 if self._should_stop():
                     break
@@ -306,7 +326,7 @@ class Trainer:
             state = cb.state_dict()
             if state:
                 states[self._callback_key(cb)] = state
-        if states:
+        if states and rank() == 0:
             path.write_text(json.dumps(states))
 
     def _load_callback_states(self) -> None:
@@ -347,16 +367,18 @@ class Trainer:
                 if self.limit_val_batches is not None and i >= self.limit_val_batches:
                     break
                 seed_generators(module, self.device, self.seed + 1, i)
-                metrics, out = val_step(
-                    self.state, put.ready(put(batch)), module.step_scalars(),
-                    **self._draws("validation", i),
-                )
+                with sharded_draws():
+                    metrics, out = val_step(
+                        self.state, put.ready(put(batch)), module.step_scalars(),
+                        **self._draws("validation", i),
+                    )
                 for k, v in metrics.items():
                     per_batch.setdefault(k, []).append(torch.as_tensor(v).detach().float().reshape(()))
                 outputs.append(out)
         mean_metrics = {}
         if per_batch:
-            stacked = torch.stack([torch.stack(v) for v in per_batch.values()]).cpu().numpy()
+            stacked = torch.stack([torch.stack(v) for v in per_batch.values()])
+            stacked = sync_metrics({"all": stacked})["all"].cpu().numpy()
             mean_metrics = {k: float(np.mean(row.astype(np.float64))) for k, row in zip(per_batch, stacked)}
         self.sink.log(mean_metrics, self.global_step, prefix="validation")
         self._last_val_metrics = {f"validation/{k}": v for k, v in mean_metrics.items()}

@@ -5,7 +5,11 @@ tacorl_tpu/data/loader.py).
 bounded prefetch queue; batches are dicts of numpy arrays whose every
 random draw is keyed by ``(seed, epoch, batch_idx[, idx])``, so they are
 bit-equal to the JAX package's and independent of the thread count. With
-``pin_memory`` set, the loader's threads copy each finished batch into
+``shard`` a rank's ``parallel.mesh.BatchShard`` (the trainer sets it), each
+batch is that rank's rows of the global batch of ``batch_size`` rows,
+equal to those rows of the one-process batch: the index order and the
+per-batch keys are the global batch's, and a rank reads only its rows.
+With ``pin_memory`` set, the loader's threads copy each finished batch into
 page-locked torch tensors, so the training thread never pins.
 
 ``device_prefetch`` keeps ``depth`` batches in flight: ``put_fn`` runs on the
@@ -33,6 +37,7 @@ from typing import Any, Callable, Dict, Iterator, List, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tacorl_tpu_torch.parallel.mesh import BatchShard
 from tacorl_tpu_torch.utils import resolve_device
 
 __all__ = ["collate", "DataLoader", "device_prefetch", "DevicePut", "tree_map"]
@@ -111,6 +116,7 @@ class DataLoader:
         self.prefetch = prefetch
         self.num_threads = num_threads
         self.pin_memory = pin_memory
+        self.shard = BatchShard()
         self.epoch = 0
 
     def __len__(self) -> int:
@@ -134,16 +140,17 @@ class DataLoader:
         ]
         if self.drop_last:
             batches = [b for b in batches if len(b) == self.batch_size]
-        pin = self.pin_memory
+        pin, shard = self.pin_memory, self.shard
 
         def produce(batch_idx: int, indices: np.ndarray) -> Dict:
+            rows = shard.rows(len(indices))
             # packed-storage datasets expose a native batched gather
             if getattr(self.dataset, "supports_batch", lambda: False)():
                 rng = np.random.default_rng((self.seed, epoch, batch_idx))
-                batch = self.dataset.sample_batch(indices, rng)
+                batch = self.dataset.sample_batch(indices, rng, rows)
             else:
                 items = []
-                for idx in indices:
+                for idx in indices[rows]:
                     rng = np.random.default_rng((self.seed, epoch, batch_idx, int(idx)))
                     items.append(self.dataset.sample(int(idx), rng))
                 batch = collate(items)

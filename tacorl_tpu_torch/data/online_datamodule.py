@@ -13,7 +13,10 @@ was before the previous step's env step. One generator,
 draws every batch, so the batches are bit-equal to the JAX loader's. With
 ``pin_memory`` set (the trainer sets it on a card), each batch's arrays are
 copied into page-locked tensors, so the copy to the card can run
-asynchronously.
+asynchronously. With ``shard`` a rank's ``parallel.mesh.BatchShard`` (the
+trainer sets it), each batch is that rank's rows of the global sample:
+every rank plays the same seeded env stream and keeps the same buffer, as
+the JAX package's one controller shards one sample over its chips.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from typing import Iterator
 import numpy as np
 
 from tacorl_tpu_torch.data.loader import _pinned, tree_map
+from tacorl_tpu_torch.parallel.mesh import BatchShard
 
 __all__ = ["OnlineRLDataModule"]
 
@@ -34,13 +38,15 @@ class _BufferLoader:
         self.steps_per_epoch = steps_per_epoch
         self.rng = np.random.default_rng(seed)
         self.pin_memory = False
+        self.shard = BatchShard()
 
     def __len__(self) -> int:
         return self.steps_per_epoch
 
     def __iter__(self) -> Iterator:
         for _ in range(self.steps_per_epoch):
-            batch = self.module.replay_buffer.sample(self.batch_size, self.rng)
+            rows = self.shard.rows(self.batch_size)
+            batch = self.module.replay_buffer.sample(self.batch_size, self.rng, rows)
             yield tree_map(_pinned, batch) if self.pin_memory else batch
 
 

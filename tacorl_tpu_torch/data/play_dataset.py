@@ -250,18 +250,25 @@ class PlayWindowDataset:
         return isinstance(self.storage, PackedStorage)
 
     def sample_batch(
-        self, indices: Sequence[int], rng: np.random.Generator
+        self, indices: Sequence[int], rng: np.random.Generator, rows: slice = slice(None)
     ) -> Dict:
         """One multithreaded gather for the whole batch: all windows are read
         at max_window_size, then per-item padding semantics are applied in
         place (repeat-last frames; zero relative actions except the repeated
-        gripper channel). Identical outputs to per-item sample()+collate."""
+        gripper channel). Identical outputs to per-item sample()+collate.
+        ``rows`` keeps those rows of the batch (a rank's share): every row's
+        draws are made, in the order of the whole batch, and only the kept
+        rows are read, so they equal those rows of the whole batch."""
         indices = np.asarray(indices, dtype=np.int64)
-        b = len(indices)
         window_sizes = np.asarray(
             [self._window_size(int(i), rng) for i in indices], dtype=np.int64
         )
         starts = self.episode_lookup[indices]
+        if self.include_goal:
+            goal_steps, disps = self._goal_steps(starts, window_sizes, rng)
+            goal_steps, disps = goal_steps[rows], disps[rows]
+        indices, window_sizes, starts = indices[rows], window_sizes[rows], starts[rows]
+        b = len(indices)
         keys = list(self.modalities)
         if not self.real_world:
             for k in STATE_INFO_KEYS:
@@ -294,44 +301,50 @@ class PlayWindowDataset:
         if not self.real_world:
             batch["state_info"] = {k: data[k] for k in STATE_INFO_KEYS}
         if self.include_goal:
-            goal_steps = np.empty(b, dtype=np.int64)
-            disps = np.empty(b, dtype=np.int64)
-            for i in range(b):
-                strategy = rng.choice(
-                    list(self.goal_strategy_prob.keys()),
-                    p=list(self.goal_strategy_prob.values()),
-                )
-                ws = int(window_sizes[i])
-                seq_start = int(starts[i])
-                if strategy == "geometric":
-                    episode_end = self._episode_end(seq_start)
-                    if episode_end is None:
-                        # same fallback as _future_state (per-item path):
-                        # a start outside every episode gets a random goal
-                        goal_steps[i] = int(rng.choice(self.episode_lookup))
-                        disps[i] = -1
-                        continue
-                    disp = int(rng.geometric(p=self.goal_sampling_prob))
-                    goal_step = seq_start + (ws - 1) * disp
-                    if self.goal_augmentation:
-                        goal_step += int(rng.integers(0, 3)) - 1
-                    goal_steps[i] = min(episode_end, goal_step)
-                    disps[i] = disp
-                else:
-                    options = self.nn_steps_from_step.get(
-                        seq_start + ws - 1, []
-                    )
-                    goal_steps[i] = (
-                        int(rng.choice(options))
-                        if options
-                        else int(rng.choice(self.episode_lookup))
-                    )
-                    disps[i] = -1
             batch["goal"] = self.storage.read_frame_batch(
                 goal_steps, self._state_keys()
             )
             batch["disp"] = disps
         return batch
+
+    def _goal_steps(self, starts, window_sizes, rng):
+        """Each row's goal frame and displacement (-1 off the geometric
+        strategy), drawn row by row as the per-item path draws them."""
+        b = len(starts)
+        goal_steps = np.empty(b, dtype=np.int64)
+        disps = np.empty(b, dtype=np.int64)
+        for i in range(b):
+            strategy = rng.choice(
+                list(self.goal_strategy_prob.keys()),
+                p=list(self.goal_strategy_prob.values()),
+            )
+            ws = int(window_sizes[i])
+            seq_start = int(starts[i])
+            if strategy == "geometric":
+                episode_end = self._episode_end(seq_start)
+                if episode_end is None:
+                    # same fallback as _future_state (per-item path):
+                    # a start outside every episode gets a random goal
+                    goal_steps[i] = int(rng.choice(self.episode_lookup))
+                    disps[i] = -1
+                    continue
+                disp = int(rng.geometric(p=self.goal_sampling_prob))
+                goal_step = seq_start + (ws - 1) * disp
+                if self.goal_augmentation:
+                    goal_step += int(rng.integers(0, 3)) - 1
+                goal_steps[i] = min(episode_end, goal_step)
+                disps[i] = disp
+            else:
+                options = self.nn_steps_from_step.get(
+                    seq_start + ws - 1, []
+                )
+                goal_steps[i] = (
+                    int(rng.choice(options))
+                    if options
+                    else int(rng.choice(self.episode_lookup))
+                )
+                disps[i] = -1
+        return goal_steps, disps
 
 
 def _pad_repeat(arr: np.ndarray, pad: int) -> np.ndarray:

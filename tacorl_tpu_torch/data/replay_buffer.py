@@ -45,12 +45,15 @@ class ReplayBuffer:
         self.buffer.append(Transition(state, action, next_state, reward, done))
         self.unsaved_transitions += 1
 
-    def sample(self, batch_size: int, rng: Optional[np.random.Generator] = None) -> Dict:
+    def sample(
+        self, batch_size: int, rng: Optional[np.random.Generator] = None, rows: slice = slice(None)
+    ) -> Dict:
         """A batch in the transition-dataset format (observations / actions
-        / next_observations / rewards / terminals)."""
+        / next_observations / rewards / terminals); ``rows`` keeps those
+        rows of it (a rank's share of the global batch's draw)."""
         rng = rng or np.random.default_rng()
         n = min(len(self.buffer), batch_size)
-        idx = rng.choice(len(self.buffer), n, replace=False)
+        idx = rng.choice(len(self.buffer), n, replace=False)[rows]
         items = [self.buffer[i] for i in idx]
         return {
             "observations": collate([t.state for t in items]),

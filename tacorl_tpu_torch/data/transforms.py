@@ -43,6 +43,7 @@ from tacorl_tpu_torch.ops.jitter_aug import (
     jitter_normalize_reference,
     sample_jitter_factors,
 )
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 from tacorl_tpu_torch.utils import resolve_device
 
 __all__ = ["DeviceTransforms", "image_sizes"]
@@ -99,8 +100,8 @@ class DeviceTransforms:
             if train and noise_std > 0.0:
                 noise = (draws or {}).get("noise")
                 if noise is None:
-                    noise = torch.randn(
-                        x.shape, generator=generator, device=x.device
+                    noise = draw_rows(
+                        lambda s: torch.randn(s, generator=generator, device=x.device), x.shape
                     )
                 x = x + noise * noise_std
             return x
@@ -123,7 +124,9 @@ class DeviceTransforms:
             shifts = draws.get("shifts")
             if shifts is None:
                 n = x.reshape((-1,) + x.shape[-2:]).shape[0]
-                shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=generator, device=x.device)
+                shifts = draw_rows(
+                    lambda s: torch.randint(0, 2 * pad + 1, s, generator=generator, device=x.device), (n, 2)
+                )
             return image_aug.augment_depth_train(x, shifts, size, pad, lo, hi)
         raise ValueError(f"unknown transform kind {kind!r}")
 
@@ -157,8 +160,9 @@ class DeviceTransforms:
         pad = int(cfg.get("pad", 6))
         shifts = draws.get("shifts")
         if shifts is None:
-            shifts = torch.randint(
-                0, 2 * pad + 1, (n, 2), generator=generator, device=flat.device
+            shifts = draw_rows(
+                lambda s: torch.randint(0, 2 * pad + 1, s, generator=generator, device=flat.device),
+                (n, 2),
             )
         x = image_aug.resize_shift(
             flat, shifts, size, pad, dtype=_AUG_DTYPES[aug_dtype]

@@ -102,6 +102,7 @@ from tacorl_tpu_torch.networks.goal_encoder import VisualGoalEncoder
 from tacorl_tpu_torch.networks.late_fusion import build_late_fusion
 from tacorl_tpu_torch.networks.layers import reset_parameters
 from tacorl_tpu_torch.networks.visual_wrappers import VisualActorWrapper, VisualCriticWrapper
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 
 __all__ = ["CQLNet", "CQLModule"]
 
@@ -431,9 +432,10 @@ class CQLModule(AlgorithmModule):
             if rows in given:
                 masks[rows] = self._tensor(given[rows], torch.bool)
             else:
+                # n * bs rows are n-major: (n, bs), the batch axis second
                 masks[rows] = dropout_keep_mask(
-                    (rows, q.trunk_dim), q.dropout_p, self.device, self.generator
-                )
+                    (rows // bs, bs, q.trunk_dim), q.dropout_p, self.device, self.generator
+                ).reshape(rows, q.trunk_dim)
         return masks
 
     def _vib_eps(self, draws, bs: int) -> Optional[Dict[str, Dict[str, Tensor]]]:
@@ -449,8 +451,10 @@ class CQLModule(AlgorithmModule):
                 if m in networks and getattr(networks[m], "vib", False):
                     eps = (given.get(part) or {}).get(m)
                     if eps is None:
-                        eps = torch.randn((bs, networks[m].latent_dim), generator=self.generator,
-                                          device=self.device)
+                        eps = draw_rows(
+                            lambda s: torch.randn(s, generator=self.generator, device=self.device),
+                            (bs, networks[m].latent_dim),
+                        )
                     out[part][m] = self._tensor(eps)
         return out if out["observation"] or out["goal"] else None
 
@@ -465,7 +469,10 @@ class CQLModule(AlgorithmModule):
         )
         rand = draws.get("rand")
         if rand is None:
-            rand = torch.rand((bs * n, a), generator=self.generator, device=self.device) * 2.0 - 1.0
+            # n-major rows, as the samples: (n, bs), the batch axis second
+            rand = draw_rows(
+                lambda s: torch.rand(s, generator=self.generator, device=self.device), (n, bs, a), axis=1
+            ).reshape(n * bs, a) * 2.0 - 1.0
         rand = self._tensor(rand)
         if policy.discrete_gripper:
             rand = torch.cat([rand[:, :-1], torch.where(rand[:, -1:] >= 0, 1.0, -1.0)], dim=-1)

@@ -41,12 +41,14 @@ from tacorl_tpu_torch.core.distributions import (
     balanced_kl,
     kl_diag_normal,
 )
+from tacorl_tpu_torch.core.optimizers import reduce_gradients
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.data.transforms import DeviceTransforms, image_sizes
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
 from tacorl_tpu_torch.networks.actor import Actor
 from tacorl_tpu_torch.networks.late_fusion import LateFusion, build_late_fusion
 from tacorl_tpu_torch.networks.layers import reset_parameters
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 
 __all__ = ["PlayLMPNet", "PlayLMPModule", "uniform_pm1"]
 
@@ -248,7 +250,7 @@ def uniform_pm1(given: Optional[Tensor], shape, like: Tensor, generator) -> Tens
     [-1, 1) there (the random plan and goal)."""
     if given is not None:
         return torch.as_tensor(given).to(like)
-    return torch.rand(shape, generator=generator, device=like.device) * 2.0 - 1.0
+    return draw_rows(lambda s: torch.rand(s, generator=generator, device=like.device), shape) * 2.0 - 1.0
 
 
 class PlayLMPModule(AlgorithmModule):
@@ -411,7 +413,8 @@ class PlayLMPModule(AlgorithmModule):
             with record_function("play_lmp/backward"):
                 total.backward()
             with record_function("play_lmp/adam"):
-                grads = [p.grad for p in net.parameters() if p.grad is not None]
+                # the mean over the ranks first (no-op without a process group)
+                grads = reduce_gradients(net.parameters())
                 # optax.global_norm: the l2 norm over all gradient leaves
                 metrics["grad_norm"] = torch.linalg.vector_norm(
                     torch.stack([torch.linalg.vector_norm(g) for g in grads])

@@ -30,6 +30,7 @@ from torch import Tensor
 from torch.profiler import record_function
 
 from tacorl_tpu_torch.config import get_class
+from tacorl_tpu_torch.core.optimizers import reduce_gradients
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPNet, uniform_pm1
@@ -242,6 +243,7 @@ class PlayLMPD4RLModule(AlgorithmModule):
             with record_function("play_lmp_d4rl/backward"):
                 total.backward()
             with record_function("play_lmp_d4rl/adam"):
+                reduce_gradients(net.parameters())  # the mean over the ranks
                 state.optimizer.step()
             state.step += 1
             return state, {k: v.detach() for k, v in metrics.items()}

@@ -29,6 +29,7 @@ from torch import Tensor
 from torch.profiler import record_function
 
 from tacorl_tpu_torch.config import get_class
+from tacorl_tpu_torch.core.optimizers import reduce_gradients
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.data.transforms import DeviceTransforms, image_sizes
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init
@@ -240,6 +241,7 @@ class RILModule(AlgorithmModule):
             with record_function("ril/backward"):
                 total.backward()
             with record_function("ril/adam"):
+                reduce_gradients(net.parameters())  # the mean over the ranks
                 state.optimizer.step()
             state.step += 1
             return state, {k: v.detach() for k, v in metrics.items()}

@@ -23,6 +23,12 @@ as the observation>, "action": {"eps", "gumbel_u"}}``, the JAX play key's
 (``jax.random.split(_play_key)``); what is missing comes from the module's
 generator. The env needs the action on the host, so each play step makes
 the host wait for the device once, for one copy into a page-locked buffer.
+
+Data-parallel (W ranks): every rank plays the same seeded env stream, so
+the play step's draws are whole on every rank (not a rank's rows), every
+rank keeps the same buffer, and the loader gives each rank its rows of one
+global sample (``data/online_datamodule.py``). Rank 0 alone writes the
+buffer's files; every rank has loaded them before any rank writes.
 """
 
 from __future__ import annotations
@@ -38,6 +44,7 @@ from tacorl_tpu_torch.config import instantiate
 from tacorl_tpu_torch.data.replay_buffer import ReplayBuffer
 from tacorl_tpu_torch.evaluation.agents import batch_of_one
 from tacorl_tpu_torch.modules.cql import CQLModule
+from tacorl_tpu_torch.parallel.mesh import BatchShard, barrier, rank, sharded_draws
 
 __all__ = ["SACModule"]
 
@@ -153,7 +160,9 @@ class SACModule(CQLModule):
         ``num_parallel_envs > 1`` and an env config, and save them there.
         Without a net only ``random`` and ``zeros`` can act: any other
         strategy falls back to ``random``."""
-        if self.replay_buffer.load(self.replay_buffer_path):
+        loaded = self.replay_buffer.load(self.replay_buffer_path)
+        barrier()  # every rank has read the files before rank 0 writes
+        if loaded:
             return
         if not self.populate_replay_buffer or len(self.replay_buffer) > 0:
             return
@@ -167,7 +176,8 @@ class SACModule(CQLModule):
         else:
             for _ in range(steps):
                 self.play_step(net, strategy)
-        self.replay_buffer.save(self.replay_buffer_path)
+        if rank() == 0:
+            self.replay_buffer.save(self.replay_buffer_path)
 
     def _populate_parallel(self, net, steps, strategy, n_parallel) -> None:
         """``n_parallel`` envs from the env config stepped together until
@@ -202,7 +212,8 @@ class SACModule(CQLModule):
             update, then the update in place on ``state``; ``draws`` as in
             ``modules/cql.py``, plus ``draws["play"]``."""
             draws = draws or {}
-            with record_function("sac/play_step"):
+            # the env stream is every rank's: its draws are whole
+            with record_function("sac/play_step"), sharded_draws(BatchShard()):
                 self.play_step(state.net, "stochastic", draws.get("play"))
             return inner(state, batch, scalars, draws=draws)
 
@@ -210,5 +221,6 @@ class SACModule(CQLModule):
 
     def save_checkpoint_extras(self) -> None:
         """The transitions added since the last snapshot, to
-        ``replay_buffer_path`` (sac_lightning.py:446-451)."""
-        self.replay_buffer.save(self.replay_buffer_path)
+        ``replay_buffer_path`` (sac_lightning.py:446-451), by rank 0."""
+        if rank() == 0:
+            self.replay_buffer.save(self.replay_buffer_path)

@@ -32,6 +32,7 @@ from tacorl_tpu_torch.core.distributions import (
     logistic_mixture_sample,
 )
 from tacorl_tpu_torch.networks.layers import TorchDense
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 
 LOG_SIG_MIN = -5.0
 LOG_SIG_MAX = 2.0
@@ -412,7 +413,7 @@ class ActionDecoderLogistic(nn.Module):
 
 
 def _uniform(shape, like: Tensor, generator: Optional[torch.Generator]) -> Tensor:
-    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+    u = draw_rows(lambda s: torch.rand(s, generator=generator, device=like.device, dtype=like.dtype), shape)
     return u * (_U_MAX - _U_MIN) + _U_MIN
 
 
@@ -527,11 +528,16 @@ class ActionDecoderGaussian(nn.Module):
         gumbel, eps = draws.get("gumbel"), draws.get("eps")
         if gumbel is None:
             # jax.random.gumbel: -log(-log(U)), U uniform on [tiny, 1)
-            u = torch.rand(log_pi.shape, generator=generator, device=log_pi.device, dtype=log_pi.dtype)
+            u = draw_rows(
+                lambda s: torch.rand(s, generator=generator, device=log_pi.device, dtype=log_pi.dtype),
+                log_pi.shape,
+            )
             gumbel = -torch.log(-torch.log(torch.clamp(u, min=torch.finfo(u.dtype).tiny)))
         if eps is None:
-            eps = torch.randn(mu.shape[:-2] + mu.shape[-1:], generator=generator, device=mu.device,
-                              dtype=mu.dtype)
+            eps = draw_rows(
+                lambda s: torch.randn(s, generator=generator, device=mu.device, dtype=mu.dtype),
+                mu.shape[:-2] + mu.shape[-1:],
+            )
         comp = torch.argmax(log_pi + gumbel.to(log_pi), dim=-1)  # (B, T)
         idx = comp[..., None, None].expand(comp.shape + (1, mu.shape[-1]))
         sel_mu = torch.gather(mu, -2, idx)[..., 0, :]

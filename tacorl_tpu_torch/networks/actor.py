@@ -16,7 +16,7 @@ from torch import Tensor
 
 from tacorl_tpu_torch.core.distributions import (
     TanhNormal,
-    gumbel_softmax_log_prob,
+    gumbel_class_log_prob,
     gumbel_softmax_rsample,
     gumbel_softmax_sample,
 )
@@ -157,7 +157,7 @@ class Actor(nn.Module):
             grip_idx = torch.argmax(onehot, dim=-1)
         else:
             grip_idx = gumbel_softmax_sample(grip_logits, generator, u=draws.get("gumbel_u"))
-        log_pi = log_pi + gumbel_softmax_log_prob(grip_logits, grip_idx)
+        log_pi = log_pi + gumbel_class_log_prob(grip_logits, grip_idx)
         grip_action = grip_idx[..., None].to(actions.dtype) * 2.0 - 1.0
         return torch.cat([actions, grip_action], dim=-1), log_pi
 
@@ -180,12 +180,12 @@ class Actor(nn.Module):
         grip_logits = out[2]
         grip_idx = gumbel_softmax_sample(
             grip_logits.expand((n_actions,) + tuple(grip_logits.shape)),
-            generator, u=draws.get("gumbel_u"),
+            generator, u=draws.get("gumbel_u"), axis=1,
         )
         grip_action = grip_idx[..., None].to(actions.dtype) * 2.0 - 1.0
         return (
             torch.cat([actions, grip_action], dim=-1),
-            log_pi + gumbel_softmax_log_prob(grip_logits, grip_idx),
+            log_pi + gumbel_class_log_prob(grip_logits, grip_idx),
         )
 
     def log_prob(self, obs_emb: Tensor, actions: Tensor) -> Tensor:
@@ -196,4 +196,4 @@ class Actor(nn.Module):
             return TanhNormal(out[0], out[1]).log_prob(actions)
         log_pi = TanhNormal(out[0], out[1]).log_prob(actions[..., :-1])
         grip_value = actions[..., -1] / 2.0 + 0.5
-        return log_pi + gumbel_softmax_log_prob(out[2], grip_value)
+        return log_pi + gumbel_class_log_prob(out[2], grip_value)

@@ -23,6 +23,7 @@ import torch.nn as nn
 from torch import Tensor
 
 from tacorl_tpu_torch.networks.layers import TorchDense, Trunk, get_activation
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 
 __all__ = ["Critic", "MLPQNetwork", "D2RLQNetwork", "DenseNetQNetwork", "dropout_keep_mask"]
 
@@ -31,10 +32,12 @@ def dropout_keep_mask(
     shape, p: float, device, generator: Optional[torch.Generator] = None
 ) -> Tensor:
     """A boolean keep mask, each element kept with probability 1 - p; from
-    a generator seeded 0 when none is given."""
+    a generator seeded 0 when none is given. The rows are the axis before
+    the last (``parallel.mesh.draw_rows``)."""
     if generator is None:
         generator = torch.Generator(device=device).manual_seed(0)
-    return torch.rand(shape, generator=generator, device=device) < 1.0 - p
+    keep = draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape, len(shape) - 2)
+    return keep < 1.0 - p
 
 
 class MLPQNetwork(nn.Module):

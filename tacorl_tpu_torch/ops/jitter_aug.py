@@ -43,6 +43,7 @@ from tacorl_tpu_torch.ops.image_aug import (
     adjust_hue,
     normalize,
 )
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 
 __all__ = [
     "jitter_normalize",
@@ -97,14 +98,14 @@ def sample_jitter_factors(
     dev = generator.device
 
     def uniform(lo: float, hi: float) -> Tensor:
-        return torch.rand(n, generator=generator, device=dev) * (hi - lo) + lo
+        return draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (n,)) * (hi - lo) + lo
 
     bf = uniform(max(0.0, 1.0 - brightness), 1.0 + brightness)
     cf = uniform(max(0.0, 1.0 - contrast), 1.0 + contrast)
     hf = uniform(-hue, hue)
-    code = torch.randint(0, len(PERM_TABLE), (n,), generator=generator, device=dev)
+    code = draw_rows(lambda s: torch.randint(0, len(PERM_TABLE), s, generator=generator, device=dev), (n,))
     ops = _perm_table(dev)[code]
-    apply = (torch.rand(n, generator=generator, device=dev) < prob).float()
+    apply = (draw_rows(lambda s: torch.rand(s, generator=generator, device=dev), (n,)) < prob).float()
     return torch.cat(
         [
             torch.stack([bf, cf, hf], dim=-1),

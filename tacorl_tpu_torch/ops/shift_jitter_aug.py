@@ -48,6 +48,7 @@ from tacorl_tpu_torch.ops.jitter_aug import (
     raise_on_status,
     sample_jitter_factors,
 )
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 
 __all__ = [
     "shift_jitter_normalize",
@@ -223,7 +224,7 @@ def fused_augment_rgb_train(
     planar = image_aug.resize_antialias(flat.permute(0, 3, 1, 2), out_hw)
     dev = planar.device
     if shifts is None:
-        shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=generator, device=dev)
+        shifts = draw_rows(lambda s: torch.randint(0, 2 * pad + 1, s, generator=generator, device=dev), (n, 2))
     if factors is None:
         factors = sample_jitter_factors(n, generator, brightness, contrast, hue, prob)
     table = torch.cat(

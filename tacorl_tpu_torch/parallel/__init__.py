@@ -1,0 +1,6 @@
+from tacorl_tpu_torch.parallel.mesh import (  # noqa: F401
+    batch_sharding,
+    create_mesh,
+    replicate,
+    sync_metrics,
+)

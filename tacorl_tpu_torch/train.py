@@ -18,8 +18,20 @@ key (the fake experiments set ``platform: cpu``) picks a JAX backend in
 scripts/train.py and is ignored here: it never moves the port to the CPU.
 ``trainer.steps_per_call`` sets the trainer's K-step dispatch (on the card,
 CUDA-graph replays of the train step; ``core/trainer.py``).
-``multihost=true`` raises (data-parallel training is ROADMAP Queue 1,
-item 16).
+
+Data-parallel training: under a launcher, ``torchrun --nproc_per_node=W -m
+tacorl_tpu_torch.train ...`` (``WORLD_SIZE``, ``RANK``, ``LOCAL_RANK`` and
+the rendezvous address in the environment), each rank joins the process
+group (NCCL on its card ``cuda:<LOCAL_RANK>``, gloo with ``+device=cpu``)
+and trains its rows of every global batch: ``datamodule.batch_size`` is
+the global batch, as in the JAX package, and a W-rank run computes what
+one rank computes on it (``core/trainer.py``, ``parallel/mesh.py``). A
+caller that made its own process group keeps it. ``+multihost=true``
+(``jax.distributed.initialize`` in scripts/train.py) means the same, and
+without a launcher's environment it raises. The group is left at the end
+of a run, after the step graph is freed (its captured collectives hold
+NCCL's communicator); the returned trainer's ``step_graph`` keeps its
+counts, not its graph.
 
 A dataset's ``statistics.yaml`` action bounds go to the action decoder
 only when its class takes them: the Gaussian MDN decoder has none, and
@@ -34,12 +46,15 @@ import sys
 from pathlib import Path
 from typing import Sequence
 
+import torch.distributed as dist
+
 from tacorl_tpu_torch.config import compose, get_class, instantiate
 from tacorl_tpu_torch.core.checkpoint import CheckpointManager
 from tacorl_tpu_torch.core.logging import MetricsSink
 from tacorl_tpu_torch.core.trainer import Trainer
 from tacorl_tpu_torch.data.datamodule import BasicDataModule
 from tacorl_tpu_torch.networks.action_decoder import ActionDecoderLogistic
+from tacorl_tpu_torch.parallel.mesh import destroy_distributed, init_distributed, launched
 from tacorl_tpu_torch.utils import resolve_device
 
 CONFIG_DIR = Path(__file__).resolve().parent.parent / "configs"
@@ -68,11 +83,21 @@ def main(argv=None, callbacks: Sequence = ()) -> Trainer:
     overrides = list(argv if argv is not None else sys.argv[1:])
     cfg = compose(CONFIG_DIR, "train", overrides)
     device = resolve_device(cfg.get("device", "cuda"))
-    if cfg.get("multihost"):
-        raise NotImplementedError(
-            "multihost training is not ported yet (ROADMAP Queue 1, item 16)"
-        )
+    made_group = False
+    if cfg.get("multihost") or launched() or dist.is_initialized():
+        made_group = init_distributed(device.type)
+    trainer = _fit(cfg, device, callbacks)
+    if made_group:
+        # NCCL holds a communicator until every CUDA graph that captured its
+        # collectives is gone: free the step graph first, or leaving waits
+        # forever (a failed run exits without leaving: the launcher ends it)
+        if trainer.step_graph is not None:
+            trainer.step_graph.release()
+        destroy_distributed()
+    return trainer
 
+
+def _fit(cfg: dict, device, callbacks: Sequence) -> Trainer:
     dm_cfg = dict(cfg["datamodule"])
     dm_cls = get_class(dm_cfg.pop("_target_")) if "_target_" in dm_cfg else BasicDataModule
     datamodule = dm_cls(**dm_cfg)

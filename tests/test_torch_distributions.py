@@ -161,3 +161,31 @@ def test_logistic_mixture_sample_with_injected_uniforms():
         *(torch.from_numpy(np.array(x)) for x in (lp, mu, ls, u_mix, u))
     )
     _close(got, want, atol=1e-5)
+
+
+@pytest.mark.parametrize("rows", [3, 5])
+def test_gumbel_class_log_prob_reads_indices(rows):
+    """Class indices of a two-class gripper: the JAX log-density reads them
+    as indices (at row counts other than the class count), and so does the
+    port's at every row count."""
+    rs = np.random.RandomState(1)
+    logits = rs.randn(rows, 2).astype(np.float32)
+    idx = np.arange(rows) % 2
+    want = jd.gumbel_softmax_log_prob(logits, idx)
+    _close(td.gumbel_class_log_prob(torch.from_numpy(logits), torch.from_numpy(idx)), want)
+    _close(td.gumbel_class_log_prob(torch.from_numpy(logits), torch.from_numpy(idx).float() + 0.5), want)
+
+
+def test_gumbel_log_prob_of_two_rows_is_the_reference_fault():
+    """At two rows (a rank's share of a global batch of 4 at two ranks) the
+    JAX function's shape test reads the index vector as one one-hot row
+    (ROADMAP Queue 3): row 0 scores class 0 for an index of 1. The port's
+    actor reads indices there too."""
+    logits = np.asarray([[0.3, -1.2], [2.0, 0.1]], np.float32)
+    idx = np.asarray([1, 0])
+    log_softmax = np.asarray(jax.nn.log_softmax(logits, axis=-1))
+    got = td.gumbel_class_log_prob(torch.from_numpy(logits), torch.from_numpy(idx))
+    _close(got[:, 0], log_softmax[np.arange(2), idx])
+    jax_value = np.asarray(jd.gumbel_softmax_log_prob(logits, idx))[:, 0]
+    np.testing.assert_allclose(jax_value, log_softmax[:, 0], atol=1e-6)  # class 0 for both rows
+    assert not np.allclose(jax_value, log_softmax[np.arange(2), idx])
