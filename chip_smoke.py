@@ -271,6 +271,30 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 on its 32 x 16 frames and against its plain version on
                 them (bf16 atol 8e-3), rank 0 alone wrote; then ms/step of
                 (a) and (b) beside phase 31's and the one rank's.
+ 36. tooling    the JAX package's remaining tools on the card: (a) the XLA
+                rgb route (``use_pallas: false``) on the main path's 1,024
+                frames of 200x200 uint8 -> 128x128, its first frames against
+                the CPU's run on the same draws (float32, atol 2e-5), and
+                DeviceTransforms' ms on (64, 16, 200, 200, 3) by the XLA
+                route beside the fused route's (bf16 and float32); (b) a
+                Lightning-format checkpoint of the production Play-LMP
+                (nonzero recurrent biases) through ``python -m
+                tacorl_tpu_torch.convert_checkpoint``: the forward loss on
+                one batch against the unconverted module's (rtol 1e-4),
+                experiment=tacorl grafted from it for 4 steps (kernel 1
+                twice a step), ``evaluate`` scoring it over 2 long-horizon
+                episodes; (c) a play_lmp_fake validation with the t-SNE
+                callback named in the config: exact t-SNE on the card, its
+                KL and ms, the PNG; (d) ``utils/profiling.trace`` around 4
+                production stage-1 steps, the trace naming the kernel
+                once a step; (e) RealWorldEnv over an in-process stand-in
+                for robot_io, and one ``evaluate_real_world`` rollout of the
+                converted checkpoint; (f) play_lmp_fake (biRNN posterior) at
+                K=2 as graph replays across a validation pass against the
+                eager run with capturable Adam: every row within rtol 1e-4
+                (the kl_loss spike of results/torch_r12_ddp/ run J: the
+                pass moved the RNN weights under the graph; StepGraph now
+                captures again).
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -4390,6 +4414,331 @@ def phase_train_ddp(card: str, root: str, scan: dict) -> dict:
     }
 
 
+# -- the JAX package's remaining tools on the card ---------------------------------------
+
+TOOL_FRAMES = 1024  # the main path's frames: batch 64 x window 16
+TOOL_CPU_FRAMES = 128  # the CPU runs the route on the first frames (it is per image)
+TOOL_GRAFT_STEPS = 4  # one logged row at TRAIN_LOG_EVERY
+TOOL_TRACE_STEPS = 4
+TOOL_REAL_STEPS, TOOL_REAL_PLAN = 10, 5
+TOOL_LOSS_RTOL = 1e-4
+
+
+def _tool_xla_route(card: str) -> dict:
+    """(a) The XLA rgb route (``use_pallas: false``) on the main path's 1,024
+    frames of 200x200 uint8 -> 128x128 on the card against its CPU run on the
+    same draws (float32, atol 2e-5), and its time beside the fused route's."""
+    from tacorl_tpu_torch.data.transforms import DeviceTransforms
+
+    rs = np.random.RandomState(5)
+    frames = torch.from_numpy(rs.randint(0, 256, (TOOL_FRAMES, RAW_HW, RAW_HW, 3), dtype=np.uint8))
+    planar = frames.movedim(-1, -3)
+    g = torch.Generator().manual_seed(5)
+    shifts = torch.randint(0, 2 * PAD + 1, (TOOL_FRAMES, 2), generator=g)
+    draws = image_aug.sample_color_jitter(TOOL_FRAMES, g, prob=0.5)
+    dev = {k: v.cuda() for k, v in draws.items()}
+    card_out = image_aug.augment_rgb_train(planar.cuda(), shifts.cuda(), (128, 128), PAD, prob=0.5, draws=dev)
+    n = TOOL_CPU_FRAMES
+    cpu_out = image_aug.augment_rgb_train(planar[:n], shifts[:n], (128, 128), PAD, prob=0.5,
+                                          draws={k: v[:n] for k, v in draws.items()})
+    err = float((card_out[:n].cpu() - cpu_out).abs().max())
+    _check(card_out.shape == (TOOL_FRAMES, 3, 128, 128) and bool(torch.isfinite(card_out).all()),
+           "tooling (a): XLA route output")
+    _check(err <= F32_ATOL, f"tooling (a): XLA route on the card vs the CPU: max abs err {err}")
+    batch = frames.reshape(BATCH, WINDOW, RAW_HW, RAW_HW, 3).cuda()
+    rgb = dict(PRODUCTION_CFG["transforms"]["rgb_static"])
+    routes = {
+        "xla": DeviceTransforms({"rgb_static": {**rgb, "use_pallas": False}}, device="cuda"),
+        "fused": DeviceTransforms({"rgb_static": rgb}, device="cuda"),
+        "fused_f32": DeviceTransforms({"rgb_static": {**rgb, "aug_dtype": "float32"}}, device="cuda"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    ms = {k: _time_ms(lambda t=t: t({"rgb_static": batch}, generator=gen), reps=10) for k, t in routes.items()}
+    print(f"[tooling] (a) XLA rgb route (use_pallas: false) on {TOOL_FRAMES} frames {RAW_HW}x{RAW_HW} uint8 -> "
+          f"128x128 float32: the card's first {n} frames vs the CPU's on the same draws, max abs err {err:.3g} "
+          f"(atol {F32_ATOL}) | DeviceTransforms on (64, 16, 200, 200, 3): XLA route {ms['xla']:.3f} ms, fused "
+          f"route {ms['fused']:.3f} ms (bf16, the CUDA kernel), fused float32 {ms['fused_f32']:.3f} ms | {card}",
+          flush=True)
+    return {"err": err, **ms}
+
+
+def _lightning_lmp(root: str):
+    """A Lightning-format checkpoint of the production Play-LMP (seed-0
+    weights, the decoder's recurrent biases nonzero), its module config,
+    and the module the checkpoint holds as it is."""
+    cfg = {"_target_": LMP_TARGET, **copy.deepcopy(PRODUCTION_CFG)}
+    module = PlayLMPModule(cfg, device="cuda")
+    module.init_state(0)
+    g = torch.Generator().manual_seed(7)
+    sd = {k: v.detach().cpu().clone() for k, v in module.net.state_dict().items()}
+    for key in [k for k in sd if k.startswith("action_decoder.rnn.bias_")]:
+        sd[key] = 0.05 * torch.randn(sd[key].shape, generator=g)
+    module.net.load_state_dict(sd)
+    torch.save({"epoch": 0, "global_step": 0, "state_dict": sd}, f"{root}/play_lmp.ckpt")
+    with open(f"{root}/module.yaml", "w") as f:
+        json.dump({"module": cfg}, f)  # YAML reads JSON
+    return f"{root}/play_lmp.ckpt", f"{root}/module.yaml", module
+
+
+def _eval_loss(module, batch, eps) -> dict:
+    module.net.eval()
+    with torch.no_grad():
+        states = module.transforms(batch["states"], train=False)
+        actions = torch.as_tensor(batch["actions"]).cuda()
+        _, metrics, _ = module.net.compute_loss(states, actions, 1e-3, eps=eps)
+    return {k: float(v) for k, v in metrics.items()}
+
+
+def _tool_convert(card: str, root: str, train_data: str) -> dict:
+    """(b) A Lightning checkpoint of the production Play-LMP converted by
+    ``python -m tacorl_tpu_torch.convert_checkpoint``: the forward loss on
+    one batch against the unconverted module's, stage 2 grafted from it for
+    a few steps (kernel 1 counted), and ``evaluate`` scoring it."""
+    from tacorl_tpu_torch import convert_checkpoint, evaluate, train
+
+    ckpt, module_cfg, source = _lightning_lmp(root)
+    out = f"{root}/converted"
+    t0 = time.perf_counter()
+    module, _ = convert_checkpoint.main(["--ckpt", ckpt, "--module-config", module_cfg, "--out", out])
+    convert_s = time.perf_counter() - t0
+    sd = module.net.state_dict()
+    _check(float(sd["action_decoder.rnn.bias_hh_l0"].abs().max()) == 0.0, "tooling (b): bias_hh not folded")
+    batch = _batch(8, WINDOW, RAW_HW, seed=3)
+    eps = torch.randn((8, PRODUCTION_CFG["latent_plan_dim"]), generator=torch.Generator().manual_seed(3)).cuda()
+    want, got = _eval_loss(source, batch, eps), _eval_loss(module, batch, eps)
+    for key in ("total_loss", "kl_loss", "action_loss"):
+        _check(abs(got[key] - want[key]) <= TOOL_LOSS_RTOL * abs(want[key]),
+               f"tooling (b): {key} converted {got[key]} vs unconverted {want[key]}")
+    del source, module
+    torch.cuda.empty_cache()
+
+    probe = _TrainProbe(measure=False)
+    jitter_normalize.launches = 0
+    graft_dir = f"{root}/graft"
+    trainer = train.main(_train_args("tacorl", train_data, graft_dir, TOOL_GRAFT_STEPS, f"play_lmp_dir={out}"),
+                         callbacks=[probe])
+    graft_launches = jitter_normalize.launches
+    _check(trainer.global_step == TOOL_GRAFT_STEPS and all(n == 2 for n in probe.step_launches),
+           f"tooling (b): stage 2 launches a step {probe.step_launches}")
+    lmp_sd = torch.load(f"{out}/ckpts/0/state.pt", map_location="cuda", weights_only=True)["net"]
+    frozen = trainer.state.net.plan_recognition.state_dict()
+    _check(all(torch.equal(frozen[k], lmp_sd[f"plan_recognition.{k}"]) for k in frozen),
+           "tooling (b): the grafted posterior is not the converted one")
+    rows = [r for r in _metrics_rows(graft_dir) if "train/q1_loss" in r]
+    del trainer
+    torch.cuda.empty_cache()
+
+    val = f"{root}/val"
+    generate_expert_play(val, n_train_episodes=0, n_val_episodes=2, image_hw=ROLLOUT_HW, seed=2)
+    jitter_normalize.launches = 0
+    results = evaluate.main([
+        f"module_path={out}", "eval_type=long_horizon", f"data_dir={val}/validation", "min_seq_len=1",
+        "max_seq_len=400", "max_rollouts=2", "lh_tasks_per_rollout=2", "plan_duration=5",
+        "env.max_episode_steps=20", f"env.image_hw={ROLLOUT_HW}", f"filename={root}/lh.json",
+    ])
+    _check(results["num_rollouts"] == 2, f"tooling (b): evaluate scored {results['num_rollouts']} episodes")
+    print(f"[tooling] (b) Lightning checkpoint of the production Play-LMP converted in {convert_s:.1f} s: "
+          f"recurrent biases folded, forward loss converted vs unconverted on one batch: total "
+          f"{got['total_loss']:.6f} vs {want['total_loss']:.6f}, kl {got['kl_loss']:.6f} vs {want['kl_loss']:.6f} "
+          f"(rtol {TOOL_LOSS_RTOL}) | experiment=tacorl grafted from it: {TOOL_GRAFT_STEPS} steps, q1_loss "
+          f"{rows[-1]['train/q1_loss']:.4f}, jitter_normalize launches {graft_launches} (2 a step) | evaluate "
+          f"long_horizon: {results['num_rollouts']} episodes, avg_len {results['avg_len']:.2f} | {card}",
+          flush=True)
+    return {"launches": graft_launches, "converted": out}
+
+
+def _tool_tsne(card: str, root: str) -> dict:
+    """(c) One stage-1 validation with the t-SNE plan plot, named in the
+    config as the JAX package names it, on a set that carries state_info."""
+    from tacorl_tpu_torch import train
+    from tacorl_tpu_torch.callbacks.tsne_plot import TSNEPlotCallback
+
+    generate_expert_play(f"{root}/play", n_train_episodes=2, n_val_episodes=3, image_hw=64, seed=4)
+    jitter_normalize.launches = 0
+    trainer = train.main([
+        "experiment=play_lmp_fake", f"data_dir={root}/play", f"run_dir={root}/run", "trainer.max_steps=2",
+        "callbacks.rollout.every_n_epochs=100",
+        "+callbacks.tsne._target_=tacorl_tpu.callbacks.tsne_plot.TSNEPlotCallback",
+        "+callbacks.tsne.task_differ._target_=tacorl_tpu.envs.fake_calvin.FakeTasks",
+    ])
+    cb = next(c for c in trainer.callbacks if isinstance(c, TSNEPlotCallback))
+    last = cb.last
+    _check(bool(last) and last["device"].startswith("cuda"), f"tooling (c): t-SNE ran on {last.get('device')}")
+    _check(Path(last["path"]).is_file() and np.isfinite(last["kl"]), f"tooling (c): t-SNE plot {last}")
+    print(f"[tooling] (c) play_lmp_fake validation with TSNEPlotCallback: exact t-SNE of {last['n']} sampled plans "
+          f"on {last['device']} in {last['ms']:.1f} ms, final KL {last['kl']:.4f}, 600x600 PNG written | "
+          f"jitter_normalize launches {jitter_normalize.launches} (2 train steps) | {card}", flush=True)
+    del trainer
+    return {"launches": jitter_normalize.launches}
+
+
+def _tool_trace(card: str, root: str) -> dict:
+    """(d) ``utils/profiling.trace`` around four production stage-1 steps:
+    the trace file names the jitter_normalize kernel."""
+    from tacorl_tpu_torch.utils.profiling import trace
+
+    module, state, step, batch = _production_step()
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    jitter_normalize.launches = 0
+    with trace(f"{root}/profile", steps_context="stage1_steps"):
+        for _ in range(TOOL_TRACE_STEPS):
+            state, metrics = step(state, batch)
+    launches = jitter_normalize.launches
+    files = list(Path(f"{root}/profile").glob("*.pt.trace.json"))
+    _check(len(files) == 1, f"tooling (d): trace files {files}")
+    events = json.loads(files[0].read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel" and "jitter_normalize" in e.get("name", "")
+               and "shift_" not in e["name"]]
+    _check(len(kernels) == TOOL_TRACE_STEPS == launches, f"tooling (d): {len(kernels)} jitter_normalize kernels "
+           f"in the trace, {launches} launches")
+    _check(any(e.get("name") == "stage1_steps" for e in events), "tooling (d): the span is not in the trace")
+    print(f"[tooling] (d) profiling.trace around {TOOL_TRACE_STEPS} production stage-1 steps: "
+          f"{files[0].stat().st_size / 1e6:.1f} MB trace, {len(kernels)} jitter_normalize kernels in it "
+          f"({kernels[0]['name'][:48]}...), {launches} launches, total_loss {float(metrics['total_loss']):.4f} | "
+          f"{card}", flush=True)
+    del module, state, step, batch
+    torch.cuda.empty_cache()
+    return {"launches": launches}
+
+
+class _StandInRobot:
+    """An in-process stand-in for robot_io's RobotEnv: a camera of seeded
+    200x200 frames, the robot's 15-wide state, and every action kept."""
+
+    def __init__(self, robot=None, **kwargs):
+        rs = np.random.RandomState(0)
+        self.steps, self.resets = [], []
+        self.robot = type("Robot", (), {"get_state": staticmethod(lambda: np.zeros(15))})()
+        self.camera_manager = type("Cameras", (), {"get_images": staticmethod(
+            lambda: {"rgb_static": rs.randint(0, 256, (ROLLOUT_HW, ROLLOUT_HW, 3)).astype(np.uint8)})})()
+
+    def reset(self, **kwargs):
+        self.resets.append(kwargs)
+
+    def step(self, action):
+        self.steps.append(action)
+        return None, 0.0, False, {}
+
+
+@contextlib.contextmanager
+def _robot_io_stand_in():
+    import types
+
+    made = []
+
+    class RobotEnv(_StandInRobot):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    names = ("robot_io", "robot_io.envs", "robot_io.envs.robot_env")
+    saved = {n: sys.modules.get(n) for n in names}
+    mods = {n: types.ModuleType(n) for n in names}
+    mods["robot_io"].envs, mods["robot_io.envs"].robot_env = mods["robot_io.envs"], mods["robot_io.envs.robot_env"]
+    mods["robot_io.envs.robot_env"].RobotEnv = RobotEnv
+    sys.modules.update(mods)
+    try:
+        yield made
+    finally:
+        for n, m in saved.items():
+            if m is None:
+                sys.modules.pop(n, None)
+            else:
+                sys.modules[n] = m
+
+
+def _tool_real_world(card: str, root: str, converted: str) -> dict:
+    """(e) RealWorldEnv over the robot_io stand-in, then one
+    ``evaluate_real_world`` rollout of the converted checkpoint on the card."""
+    from tacorl_tpu_torch import evaluate_real_world
+    from tacorl_tpu_torch.envs.real_world import MAX_REL_ORN, MAX_REL_POS, RealWorldEnv
+
+    with _robot_io_stand_in() as made:
+        env = RealWorldEnv(modalities=["rgb_static"])
+        obs = env.reset(goal={"rgb_static": np.zeros((ROLLOUT_HW, ROLLOUT_HW, 3), np.uint8)},
+                        robot_obs=np.r_[0.1, 0.2, 0.3, 0.0, 0.0, 0.0, np.zeros(8), 1.0])
+        env.step(np.array([2.0, 0, 0, 1.0, 0, 0, -0.5]))
+        motion = made[0].steps[0]["motion"]
+        _check(obs["observation"]["rgb_static"].shape == (ROLLOUT_HW, ROLLOUT_HW, 3)
+               and made[0].resets[0]["gripper_state"] == "open"
+               and np.allclose(motion[0], [MAX_REL_POS, 0, 0]) and np.allclose(motion[1], [MAX_REL_ORN, 0, 0])
+               and motion[2] == -1, "tooling (e): RealWorldEnv")
+        import cv2
+
+        goal = f"{root}/goal.png"
+        cv2.imwrite(goal, np.random.RandomState(1).randint(0, 256, (ROLLOUT_HW, ROLLOUT_HW, 3)).astype(np.uint8))
+        jitter_normalize.launches = 0
+        t0 = time.perf_counter()
+        out = evaluate_real_world.main([f"module_path={converted}", f"img_path={goal}",
+                                        f"plan_duration={TOOL_REAL_PLAN}",
+                                        f"env.max_episode_steps={TOOL_REAL_STEPS}"])
+        wall = time.perf_counter() - t0
+        sent = np.array([np.r_[m["motion"][0], m["motion"][1], m["motion"][2]] for m in made[1].steps])
+    _check(out["episode_length"] == TOOL_REAL_STEPS == len(sent) and np.isfinite(sent).all()
+           and np.abs(sent[:, :3]).max() <= MAX_REL_POS and np.abs(sent[:, 3:6]).max() <= MAX_REL_ORN,
+           f"tooling (e): evaluate_real_world {out}, actions {sent.shape}")
+    print(f"[tooling] (e) RealWorldEnv over an in-process robot_io stand-in: reset, scaling and gripper as the "
+          f"reference's | evaluate_real_world of the converted Play-LMP on the card: {out['episode_length']} "
+          f"robot actions in {wall:.1f} s (plan_duration {TOOL_REAL_PLAN}), largest |rel pos| "
+          f"{np.abs(sent[:, :3]).max():.4f} <= {MAX_REL_POS}, jitter_normalize launches "
+          f"{jitter_normalize.launches} | {card}", flush=True)
+    return {"launches": jitter_normalize.launches}
+
+
+TOOL_GRAPH_STEPS, TOOL_GRAPH_K = 10, 2  # play_lmp_fake on 8 episodes: 6 steps an epoch, a val pass between
+
+
+def _tool_graph_after_validation(card: str, root: str) -> dict:
+    """(f) The repair of the kl_loss spike of results/torch_r12_ddp/ run
+    J: play_lmp_fake (biRNN posterior) at K = 2 as CUDA-graph replays
+    across a validation pass, whose rollout callback builds an agent that
+    repacks the RNN weights into new buffers (``flatten_parameters``),
+    against the eager run with the graph's Adam mode: every row within
+    rtol 1e-4, the step graph captured again after the move."""
+    from tacorl_tpu_torch import train
+
+    generate_expert_play(f"{root}/play", 8, 2, seed=3)
+    common = ["experiment=play_lmp_fake", f"data_dir={root}/play", "seed=42", f"trainer.max_steps={TOOL_GRAPH_STEPS}",
+              "trainer.log_every_n_steps=1", "callbacks.rollout.every_n_epochs=100"]
+    train.main(common + [f"run_dir={root}/eager"], callbacks=[_Capturable()])
+    graphed = train.main(common + [f"run_dir={root}/graphed", f"trainer.steps_per_call={TOOL_GRAPH_K}"])
+    graph = graphed.step_graph
+    held, worst = _hold_rows("tooling (f)", f"{root}/graphed", f"{root}/eager")
+    kl = [r["train/kl_loss"] for r in _metrics_rows(f"{root}/graphed") if "train/kl_loss" in r]
+    print(f"[tooling] (f) play_lmp_fake at K={TOOL_GRAPH_K} (graph replays) across a validation pass against the "
+          f"eager run: {held} rows within rtol 1e-4 (largest {worst:.3g}), kl_loss {[round(v, 4) for v in kl]}, "
+          f"step graph captures {graph.captures} (again after the validation moved the RNN weights), replays "
+          f"{graph.replays} | {card}", flush=True)
+    del graphed
+    torch.cuda.empty_cache()
+
+
+def phase_tooling(card: str, root: str, train_data: str) -> dict:
+    """The JAX package's remaining tools on the card: (a) the XLA rgb route,
+    (b) Lightning checkpoint conversion, a graft and evaluate from it, (c)
+    the t-SNE plan plot, (d) profiling.trace, (e) the real-robot env and
+    evaluate_real_world; and (f) a graphed run across a validation pass.
+    Returns kernel 1's launches by path."""
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    for sub in ("b", "c", "d", "e", "f"):
+        Path(f"{root}/{sub}").mkdir(parents=True)
+    _tool_xla_route(card)
+    convert = _tool_convert(card, f"{root}/b", train_data)
+    tsne = _tool_tsne(card, f"{root}/c")
+    traced = _tool_trace(card, f"{root}/d")
+    real = _tool_real_world(card, f"{root}/e", convert["converted"])
+    _tool_graph_after_validation(card, f"{root}/f")
+    print(f"[tooling] the phase took {time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return {
+        f"tooling/graft_tacorl/{TOOL_GRAFT_STEPS}_steps": convert["launches"],
+        "tooling/tsne_validation": tsne["launches"],
+        f"tooling/trace/{TOOL_TRACE_STEPS}_steps": traced["launches"],
+        "tooling/evaluate_real_world": real["launches"],
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4447,6 +4796,7 @@ def main() -> int:
         variants = phase_slice_variants(card)
         launches_variants = phase_train_variants(card, f"{tmp}/variants", flat_data, pct)
         ddp = phase_train_ddp(card, f"{tmp}/ddp", scan)
+        tooling = phase_tooling(card, f"{tmp}/tooling", train_data)
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -4468,6 +4818,7 @@ def main() -> int:
         **{f"train_variants/{e}": n for e, n in launches_variants.items()},
         # (a) counted in the device trace of the rank's graph replays of steps 5-12; (b) by the wrapper, a rank's
         **ddp["launches"],
+        **tooling,
     }
     kernel["max_abs_err_train_ddp"] = ddp["max_abs_err"]
     kernel["max_abs_err_train_scan"] = max(v["kernel_err"] for v in scan.values())

@@ -1,6 +1,6 @@
-"""Trainer callbacks (port of tacorl_tpu/callbacks). Exported: what is
-ported. ``TSNEPlot`` waits for ROADMAP Queue 1, item 17: a config that
-names it fails in ``config.get_class`` with an error that names ROADMAP."""
+"""Trainer callbacks (port of tacorl_tpu/callbacks): every callback of the
+JAX package, the t-SNE plan plot included (``tsne_plot.py``: exact t-SNE
+in torch and a numpy rasteriser in place of scikit-learn and matplotlib)."""
 
 from tacorl_tpu_torch.callbacks.base import Callback  # noqa: F401
 from tacorl_tpu_torch.callbacks.horizon import (  # noqa: F401
@@ -20,3 +20,4 @@ from tacorl_tpu_torch.callbacks.rollout import (  # noqa: F401
     RolloutD4RLCallback,
     RolloutLongHorizonCallback,
 )
+from tacorl_tpu_torch.callbacks.tsne_plot import TSNEPlotCallback  # noqa: F401

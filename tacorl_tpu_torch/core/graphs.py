@@ -20,6 +20,10 @@ optimizer state are restored in place and one step is captured into a
 private memory pool. The optimizers are switched to ``capturable=True``
 (their step counts live on the device). A batch of other shapes or dtypes,
 other draws or other scalar names captures again; it never runs eagerly.
+So do parameters or buffers that moved since the capture: the graph holds
+their addresses, and an eager step between replays can move them (a
+validation pass made cuDNN repack a biRNN's weights into a new buffer, and
+the replays after it trained memory the net no longer read).
 Any failure of the warm-up, the capture or a replay raises, naming the
 module and what failed.
 
@@ -96,7 +100,7 @@ class StepGraph:
         self.module, self.step_fn = module, step_fn
         self.name = type(module).__name__
         self.device = module.device
-        self.key = None
+        self.key = self.addresses = None
         self.graph = self.batch = None
         self.captures = self.replays = 0
 
@@ -104,7 +108,7 @@ class StepGraph:
         """Free the captured graph (its memory pool and, under NCCL, its
         hold on the communicator); ``captures`` and ``replays`` stay. The
         next call captures again."""
-        self.graph = self.metrics = self.batch = self.key = None
+        self.graph = self.metrics = self.batch = self.key = self.addresses = None
 
     def _fail(self, what: str, err: Exception) -> RuntimeError:
         return RuntimeError(f"{self.name}: CUDA graph {what} of the train step failed: {err}")
@@ -114,7 +118,7 @@ class StepGraph:
         replay). ``state.step`` becomes ``index + 1``."""
         pairs = _inputs(batch, draws)
         key = (_signature(pairs), tuple(scalars))
-        if key != self.key:
+        if key != self.key or _addresses(state) != self.addresses:
             self._capture(state, pairs, scalars, key)
         try:
             for static, (_, x) in zip(self.inputs, pairs):
@@ -183,7 +187,18 @@ class StepGraph:
         finally:
             state.step = step0
         self.graph, self.metrics, self.key, self.batch = graph, metrics, key, batch
+        self.addresses = _addresses(state)
         self.captures += 1
+
+
+def _addresses(state) -> Tuple[int, ...]:
+    """Where the net's parameters and buffers live. The graph reads and
+    writes them at the addresses it was captured with; a step outside it
+    can move them (cuDNN repacks an RNN's weights into a new buffer when it
+    finds them changed), and a graph replayed after such a move would
+    update memory the net no longer reads."""
+    net = state.net
+    return tuple(t.data_ptr() for t in net.parameters()) + tuple(t.data_ptr() for t in net.buffers())
 
 
 def _snapshot(state) -> Dict[str, Any]:

@@ -72,6 +72,12 @@ class MetricsSink:
             brief = ", ".join(f"{k}={v:.4g}" for k, v in list(flat.items())[:6])
             logger.info("step %d | %s", step, brief)
 
+    def log_image(self, name: str, image: np.ndarray, step: int) -> None:
+        """An (H, W, 3) uint8 image to wandb, where it is in use (as the
+        JAX sink does; the JSONL file holds scalars only)."""
+        if self._wandb is not None:
+            self._wandb.log({name: self._wandb.Image(image)}, step=int(step))
+
     def close(self) -> None:
         if self._file is not None:
             self._file.close()

@@ -20,9 +20,20 @@ because the encoder consumes NCHW; the JAX package returns
 colormap) are stock tensor ops: the JAX package computes them in XLA,
 outside any Pallas kernel.
 
+Two keys choose an rgb modality's train route. ``use_pallas: false``
+takes the JAX package's XLA route (``image_aug.augment_rgb_train``: float32
+resize, DrQ shift, clip, ``color_jitter`` with its per-image op order,
+normalize). ``use_pallas`` true or absent takes the fused route: resize and
+shift in ``aug_dtype``, then the jitter/normalize tail, which is the CUDA
+kernel ``jitter_normalize`` unless ``use_kernel: false`` selects its plain
+version. The card stands where the TPU stood, and the JAX package's
+default there is the Pallas route, so a missing key keeps the fused one.
+
 Randomness enters as data: ``draws``, nested as the states are, may hold
-an rgb modality's DrQ ``shifts`` (N, 2) and jitter ``factors`` (N, 8), a
-depth modality's ``shifts`` and (with ``gamma_noise``) its ``gamma``
+an rgb modality's DrQ ``shifts`` (N, 2) and jitter ``factors`` (N, 8) (the
+fused route) or ``shifts`` and ``color_jitter``'s ``brightness``,
+``contrast``, ``hue``, ``order`` and ``keep`` (the XLA route), a depth
+modality's ``shifts`` and (with ``gamma_noise``) its ``gamma``
 multiplier (a scalar, Gamma(gamma_shape) / gamma_rate), or a vector
 modality's ``noise``; what is missing is drawn from the ``generator``.
 
@@ -144,9 +155,10 @@ class DeviceTransforms:
         return self._stats[key]
 
     def _rgb_train(self, planar, cfg, size, draws, generator) -> Tensor:
-        """Resize + DrQ shift (two GEMM passes in ``aug_dtype``), then the
-        fused jitter/normalize tail: the CUDA kernel on CUDA unless the
-        config sets ``use_kernel: false`` (counterpart of ``use_pallas``)."""
+        """``use_pallas: false``: the XLA route. Otherwise resize + DrQ shift
+        (two GEMM passes in ``aug_dtype``), then the fused jitter/normalize
+        tail: the CUDA kernel on CUDA unless the config sets
+        ``use_kernel: false``."""
         # aug_dtype: bfloat16 halves the bytes of the resize -> shift ->
         # jitter chain; float32 keeps parity with the JAX reference in tests
         aug_dtype = str(cfg.get("aug_dtype", "float32"))
@@ -164,19 +176,23 @@ class DeviceTransforms:
                 lambda s: torch.randint(0, 2 * pad + 1, s, generator=generator, device=flat.device),
                 (n, 2),
             )
+        jitter = {
+            "brightness": float(cfg.get("brightness", 0.1)),
+            "contrast": float(cfg.get("contrast", 0.1)),
+            "hue": float(cfg.get("hue", 0.02)),
+        }
+        prob = float(cfg.get("jitter_prob", 1.0))
+        if not cfg.get("use_pallas", True):
+            out = image_aug.augment_rgb_train(
+                flat, shifts, size, pad, prob=prob, draws=draws, generator=generator, **jitter
+            )
+            return out.reshape(lead + out.shape[1:])
         x = image_aug.resize_shift(
             flat, shifts, size, pad, dtype=_AUG_DTYPES[aug_dtype]
         )
         factors = draws.get("factors")
         if factors is None:
-            factors = sample_jitter_factors(
-                n,
-                generator,
-                brightness=float(cfg.get("brightness", 0.1)),
-                contrast=float(cfg.get("contrast", 0.1)),
-                hue=float(cfg.get("hue", 0.02)),
-                prob=float(cfg.get("jitter_prob", 1.0)),
-            )
+            factors = sample_jitter_factors(n, generator, prob=prob, **jitter)
         factors = factors.to(device=x.device, dtype=torch.float32).contiguous()
         tail = jitter_normalize if cfg.get("use_kernel", True) else jitter_normalize_reference
         out = tail(x.contiguous(), factors)

@@ -10,11 +10,13 @@ kernel), so ``torch.einsum`` is their counterpart here.
 from __future__ import annotations
 
 import functools
-from typing import Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 from torch import Tensor
+
+from tacorl_tpu_torch.parallel.mesh import draw_rows
 
 __all__ = [
     "resize_bilinear",
@@ -28,6 +30,9 @@ __all__ = [
     "adjust_hue",
     "grayscale",
     "normalize",
+    "sample_color_jitter",
+    "color_jitter",
+    "augment_rgb_train",
     "augment_rgb_eval",
     "random_shift",
     "sample_depth_gamma",
@@ -230,6 +235,106 @@ def adjust_hue(img: Tensor, offset: Tensor) -> Tensor:
 
 def normalize(images: Tensor, mean: float = 0.5, std: float = 0.5) -> Tensor:
     return (images - mean) / std
+
+
+def sample_color_jitter(
+    n: int,
+    generator: Optional[torch.Generator] = None,
+    device=None,
+    brightness: float = 0.1,
+    contrast: float = 0.1,
+    hue: float = 0.02,
+    prob: float = 1.0,
+) -> Dict[str, Tensor]:
+    """The draws of ``color_jitter`` for ``n`` images: the ``brightness``,
+    ``contrast`` and ``hue`` factors (n,), the per-image op ``order``
+    (n, 3), an argsort of three uniforms, and with ``prob`` < 1 the
+    ``keep`` mask (n,) of the images that are jittered. Each is drawn in
+    the ranges of the JAX package's ``color_jitter``; under a process
+    group, as this rank's rows of the global draw."""
+
+    def rand(shape):
+        return draw_rows(lambda s: torch.rand(s, generator=generator, device=device), shape)
+
+    def uniform(lo, hi):
+        return lo + (hi - lo) * rand((n,))
+
+    draws = {
+        "brightness": uniform(max(0.0, 1.0 - brightness), 1.0 + brightness),
+        "contrast": uniform(max(0.0, 1.0 - contrast), 1.0 + contrast),
+        "hue": uniform(-hue, hue),
+        "order": torch.argsort(rand((n, 3)), dim=-1),
+    }
+    if prob < 1.0:
+        draws["keep"] = rand((n,)) < prob
+    return draws
+
+
+def color_jitter(
+    images: Tensor,
+    brightness: float = 0.1,
+    contrast: float = 0.1,
+    hue: float = 0.02,
+    prob: float = 1.0,
+    draws: Optional[Dict[str, Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tensor:
+    """Per-image torchvision-style ColorJitter over planar (N, 3, H, W)
+    floats in [0, 1] (the JAX package's XLA ``color_jitter``): brightness,
+    contrast and hue in each image's own drawn order, the image left as it
+    was where ``keep`` is False. ``draws`` holds what
+    ``sample_color_jitter`` returns; what is missing is drawn from
+    ``generator``. Each of the three positions computes the three ops over
+    the batch and keeps, per image, the one its order names there, as
+    ``jax.lax.switch`` under ``vmap`` does."""
+    n = images.shape[0]
+    draws = dict(draws or {})
+    need = {"brightness", "contrast", "hue", "order"} | ({"keep"} if prob < 1.0 else set())
+    if need - draws.keys():
+        made = sample_color_jitter(n, generator, images.device, brightness, contrast, hue, prob)
+        draws = {**made, **draws}
+
+    def per_image(name, dtype=torch.float32):
+        return draws[name].to(device=images.device, dtype=dtype).reshape(n, 1, 1, 1)
+
+    bf, cf, hf = per_image("brightness"), per_image("contrast"), per_image("hue")
+    order = draws["order"].to(device=images.device, dtype=torch.long).reshape(n, 3)
+    x = images
+    for j in range(3):
+        op = order[:, j].reshape(n, 1, 1, 1)
+        x = torch.where(
+            op == 0,
+            adjust_brightness(x, bf),
+            torch.where(op == 1, adjust_contrast(x, cf), adjust_hue(x, hf)),
+        )
+    if prob >= 1.0:
+        return x
+    return torch.where(per_image("keep", torch.bool), x, images)
+
+
+def augment_rgb_train(
+    images: Tensor,
+    shifts: Tensor,
+    out_hw: Tuple[int, int] = (128, 128),
+    pad: int = 6,
+    brightness: float = 0.1,
+    contrast: float = 0.1,
+    hue: float = 0.02,
+    prob: float = 1.0,
+    draws: Optional[Dict[str, Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+) -> Tensor:
+    """The JAX package's XLA train route for an rgb modality
+    (``use_pallas: false``): planar uint8 (..., 3, H, W) -> float32
+    bilinear resize -> DrQ shift by ``shifts`` (N, 2) over the N frames ->
+    clip of x / 255 -> ``color_jitter`` with ``draws`` -> normalize, planar
+    float32 (..., 3, H', W') in [-1, 1]."""
+    lead = images.shape[:-3]
+    flat = images.reshape((-1,) + images.shape[-3:])
+    x = random_shift(resize_bilinear(flat, out_hw), shifts, pad)
+    x = torch.clamp(x / 255.0, 0.0, 1.0)
+    x = normalize(color_jitter(x, brightness, contrast, hue, prob, draws, generator))
+    return x.reshape(lead + x.shape[1:])
 
 
 def augment_rgb_eval(images: Tensor, out_hw: Tuple[int, int] = (128, 128)) -> Tensor:

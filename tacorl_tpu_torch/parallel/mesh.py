@@ -40,7 +40,7 @@ import contextvars
 import dataclasses
 import datetime
 import os
-from typing import Any, Callable, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -185,13 +185,18 @@ class Mesh:
     rank: int = 0
 
 
-def local_mesh_devices(n_devices: Optional[int] = None) -> List[torch.device]:
-    """The cards of this host (the CPU without one), the first
-    ``n_devices`` of them."""
-    if torch.cuda.is_available():
-        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
-    else:
+def local_mesh_devices(
+    n_devices: Optional[int] = None, device: Union[str, torch.device] = "cuda"
+) -> List[torch.device]:
+    """The cards of this host, the first ``n_devices`` of them. Without a
+    card this raises, as every entry point does, unless the caller asks
+    for the CPU (``device="cpu"``: the one CPU device)."""
+    if torch.device(device).type == "cpu":
         devices = [torch.device("cpu")]
+    elif not torch.cuda.is_available():
+        raise RuntimeError("CUDA is not available; pass device='cpu' to run on the CPU")
+    else:
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
     if n_devices is not None:
         if len(devices) < n_devices:
             raise ValueError(f"requested {n_devices} devices, only {len(devices)} available")

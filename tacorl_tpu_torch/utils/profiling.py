@@ -1,0 +1,79 @@
+"""Profiling and tracing (port of tacorl_tpu/utils/profiling.py):
+``torch.profiler`` traces viewable in TensorBoard or Perfetto, plus
+host-side step timing.
+
+``start_server``: the JAX package starts ``jax.profiler``'s live-capture
+server. PyTorch has none of its own (dynolog, which serves on-demand
+traces, is a separate daemon and not a dependency), so it raises; ROADMAP
+Queue 3 records the deviation.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from pathlib import Path
+from typing import Iterator, Optional
+
+import torch
+
+__all__ = ["trace", "StepTimer", "start_server", "NO_LIVE_SERVER"]
+
+NO_LIVE_SERVER = (
+    "start_server: PyTorch has no live-capture profiling server; trace a span with "
+    "utils.profiling.trace instead (ROADMAP Queue 3, 'no live profiling server')"
+)
+
+
+@contextlib.contextmanager
+def trace(log_dir, steps_context: str = "train") -> Iterator[torch.profiler.profile]:
+    """Capture a trace of the host and, where a card is present, of the
+    card: ``with trace(run_dir / 'profile'): ...``. The span is one
+    ``record_function(steps_context)`` range. On exit the trace is written
+    into ``log_dir`` as ``<host>.<pid>.pt.trace.json`` (TensorBoard's
+    profile plugin reads it); the profiler is yielded, so a caller can read
+    ``key_averages()``."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    log_dir = Path(log_dir)
+    log_dir.mkdir(parents=True, exist_ok=True)
+    with torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)),
+    ) as prof:
+        with torch.profiler.record_function(steps_context):
+            yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+
+
+def start_server(port: int = 9999):
+    """The JAX package's live profiling server has no PyTorch counterpart."""
+    raise NotImplementedError(NO_LIVE_SERVER)
+
+
+class StepTimer:
+    """Rolling steps/sec with compile-step exclusion."""
+
+    def __init__(self, window: int = 50):
+        self.window = window
+        self._t0: Optional[float] = None
+        self._count = 0
+        self._rate = 0.0
+
+    def tick(self) -> Optional[float]:
+        now = time.perf_counter()
+        if self._t0 is None:
+            self._t0 = now
+            return None
+        self._count += 1
+        if self._count >= self.window:
+            self._rate = self._count / (now - self._t0)
+            self._t0, self._count = now, 0
+            return self._rate
+        return None
+
+    @property
+    def steps_per_sec(self) -> float:
+        return self._rate

@@ -39,6 +39,9 @@ from tacorl_tpu_torch.utils.convert import cql_state_dict_from_jax
 from tests.test_torch_cql import _batch as cql_batch, _cfg as cql_cfg, np_tree
 from tests.test_torch_rollout import RESET, _env, agent_pairs, decode_draws, lmp_modules  # noqa: F401
 from tests.test_torch_tacorl import lmp_dirs  # noqa: F401
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 CEM = {"num_iterations": 2, "population_size": 6, "num_elites": 2, "init_std": 0.3}
 

@@ -8,6 +8,9 @@ import torch
 
 from tests import test_torch_tacorl as taco
 from tests import torch_ddp_harness as ddp
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 FAMILIES, DRAWN = ("tacorl",), ("tacorl",)
 

@@ -30,6 +30,9 @@ from tacorl_tpu_torch.core.checkpoint import CheckpointManager
 from tacorl_tpu_torch.data.expert_play import generate_expert_play
 from tests import test_torch_play_lmp as lmp
 from tests import torch_ddp_child as child
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 WORLD = 2
 ONLINE = [

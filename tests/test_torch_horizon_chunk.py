@@ -28,7 +28,7 @@ from tacorl_tpu.modules.cql import CQLModule as JaxCQLModule
 from tacorl_tpu.utils import stable_fold
 from tacorl_tpu_torch import train
 from tacorl_tpu_torch.callbacks.horizon_uncertainty import CHUNK_FAULT, IncreaseHorizonUncertainty
-from tacorl_tpu_torch.core.graphs import StepGraph, _inputs, _signature, seed_generators, step_seed
+from tacorl_tpu_torch.core.graphs import StepGraph, _addresses, _inputs, _signature, seed_generators, step_seed
 from tacorl_tpu_torch.core.optimizers import GroupOptimizer, set_capturable, torch_optimizers
 from tacorl_tpu_torch.data.loader import flatten, unflatten
 from tacorl_tpu_torch.modules.cql import CQLModule
@@ -174,11 +174,12 @@ def test_chunks_of_numpy_draws_of_one_shape_capture_once(monkeypatch):
         self.scalars = {k: torch.zeros(()) for k in scalars}
         self.graph = type("Graph", (), {"replay": lambda graph: None})()
         self.metrics, self.key = {}, key
+        self.addresses = _addresses(state)  # where the net's tensors were captured
         self.captures += 1
 
     monkeypatch.setattr(StepGraph, "_capture", capture)
     module = type("M", (), {"device": torch.device("cpu"), "generator": torch.Generator()})()
-    graph, state = StepGraph(module, None), type("S", (), {"step": 0})()
+    graph, state = StepGraph(module, None), type("S", (), {"step": 0, "net": torch.nn.Linear(3, 2)})()
     rng = np.random.default_rng(0)
     for i in range(3):
         draws = {"aug": rng.random((4, 2)).astype(np.float32)}

@@ -26,6 +26,9 @@ from tacorl_tpu_torch.modules.cql import CQLModule
 from tacorl_tpu_torch.utils.convert import cql_state_dict_from_jax
 from tests.test_torch_cql import np_tree
 from tests.test_torch_cql_flat import jax_dropout_mask, vector_batch, vector_cfg
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 PASSES = 3
 

@@ -106,11 +106,61 @@ def probe():
         "tacorl_tpu_torch.networks.plan_recognition",
         "tacorl_tpu_torch.data.transforms",
         "tacorl_tpu_torch.ops.image_aug",
+        "tacorl_tpu_torch.callbacks.tsne_plot",
+        "tacorl_tpu_torch.envs.real_world",
+        "tacorl_tpu_torch.utils.profiling",
+        "tacorl_tpu_torch.utils.torch_convert",
+        "tacorl_tpu_torch.utils.visualize_frames",
+        "tacorl_tpu_torch.convert_checkpoint",
+        "tacorl_tpu_torch.evaluate_real_world",
+        "tacorl_tpu_torch.evaluate_real_world_from_dataset",
+        "tacorl_tpu_torch.measure_protocol_ceiling",
     ],
 )
 def test_probe_imported_every_module(probe, name):
     assert name in probe["imported"]
     assert "chip_smoke" in probe["loaded"] and "kernel_ab" in probe["loaded"]
+
+
+# the JAX package's modules whose counterparts have other names
+RENAMED = {"ops/pallas_aug.py": ("ops/jitter_aug.py", "ops/shift_jitter_aug.py")}
+# entry points: scripts/<name>.py -> python -m tacorl_tpu_torch.<name>
+SCRIPTS = ["train", "evaluate", "evaluate_d4rl", "evaluate_ril_oracle", "make_flagship_data",
+           "convert_checkpoint", "evaluate_real_world", "evaluate_real_world_from_dataset",
+           "measure_protocol_ceiling"]
+
+
+def test_every_jax_module_and_script_has_a_counterpart():
+    jax_pkg, port_pkg = REPO / "tacorl_tpu", REPO / "tacorl_tpu_torch"
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = path.relative_to(jax_pkg).as_posix()
+        for counterpart in RENAMED.get(rel, (rel,)):
+            assert (port_pkg / counterpart).is_file(), rel
+    jax_scripts = {p.stem for p in (REPO / "scripts").glob("*.py") if not p.stem.startswith("bench_")}
+    assert jax_scripts == set(SCRIPTS)
+    for name in SCRIPTS:
+        assert (port_pkg / f"{name}.py").is_file(), name
+
+
+@pytest.mark.parametrize("package", ["callbacks", "envs", "utils", "networks"])
+def test_every_jax_class_in_all_resolves_to_the_port(package):
+    """Each class a JAX module of ``package`` exports in ``__all__`` is what
+    a config names; the port's ``get_class`` resolves every one to a class
+    (or, for ``StackedRNN``, the factory) of the port."""
+    import importlib
+
+    from tacorl_tpu_torch.config import get_class
+
+    checked = 0
+    for path in sorted((REPO / "tacorl_tpu" / package).glob("*.py")):
+        name = f"tacorl_tpu.{package}" + ("" if path.stem == "__init__" else f".{path.stem}")
+        module = importlib.import_module(name)
+        for attr in getattr(module, "__all__", []):
+            if isinstance(getattr(module, attr), type):
+                cls = get_class(f"{name}.{attr}")
+                assert callable(cls) and cls.__module__.startswith("tacorl_tpu_torch."), (name, attr)
+                checked += 1
+    assert checked >= 1
 
 
 @pytest.mark.parametrize("forbidden", ["jax", "jaxlib", "flax", "optax", "tacorl_tpu"])
@@ -168,11 +218,21 @@ def _cql_cfg():
      "make_agent", "evaluate.main", "Trainer", "train.main", "DevicePut", "PlayLMPD4RLModule",
      "TACORLD4RLModule", "LatentPlanD4RLAgent", "TACORLD4RLAgent", "make_d4rl_agent",
      "evaluate_d4rl.main", "RILModule", "RILAgent", "OracleSubgoalAgent", "evaluate_ril_oracle.main",
-     "SACModule", "CQLOnlineModule", "train.main online"],
+     "SACModule", "CQLOnlineModule", "train.main online", "local_mesh_devices", "convert_checkpoint.main",
+     "evaluate_real_world.main", "evaluate_real_world_from_dataset.main"],
 )
 def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     _no_cuda()
-    from tacorl_tpu_torch import evaluate, evaluate_d4rl, evaluate_ril_oracle, train
+    from tacorl_tpu_torch import (
+        convert_checkpoint,
+        evaluate,
+        evaluate_d4rl,
+        evaluate_real_world,
+        evaluate_real_world_from_dataset,
+        evaluate_ril_oracle,
+        train,
+    )
+    from tacorl_tpu_torch.parallel.mesh import local_mesh_devices
     from tacorl_tpu_torch.core.checkpoint import CheckpointManager, load_module_from_checkpoint
     from tacorl_tpu_torch.core.trainer import Trainer
     from tacorl_tpu_torch.data.loader import DevicePut
@@ -229,6 +289,12 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "SACModule": lambda: SACModule(_online_cfg()),
         "CQLOnlineModule": lambda: CQLOnlineModule(_online_cfg()),
         "train.main online": lambda: train.main(["experiment=cql_online_fake", f"run_dir={tmp_path / 'online'}"]),
+        "local_mesh_devices": lambda: local_mesh_devices(),
+        "convert_checkpoint.main": lambda: convert_checkpoint.main(
+            ["--ckpt", str(tmp_path / "x.ckpt"), "--module-config", str(tmp_path / "m.yaml"), "--out", str(tmp_path)]),
+        "evaluate_real_world.main": lambda: evaluate_real_world.main([f"module_path={tmp_path}", "img_path=x"]),
+        "evaluate_real_world_from_dataset.main": lambda: evaluate_real_world_from_dataset.main(
+            [f"module_path={tmp_path}", "img_path=x", f"data_dir={tmp_path}"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()

@@ -30,9 +30,15 @@ def test_without_a_group_one_rank_of_one():
     assert mesh.gather_objects({"a": 1}) == [{"a": 1}]
     mesh.barrier()
     assert mesh.fold_rank(123) == 123
-    assert mesh.local_mesh_devices() == [torch.device("cpu")]
+    assert mesh.local_mesh_devices(device="cpu") == [torch.device("cpu")]
     with pytest.raises(ValueError, match="requested 2 devices"):
-        mesh.local_mesh_devices(2)
+        mesh.local_mesh_devices(2, device="cpu")
+
+
+def test_local_mesh_devices_raises_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        mesh.local_mesh_devices()
 
 
 @pytest.mark.parametrize(

@@ -58,6 +58,9 @@ from tests import test_torch_ril as ril
 from tests import test_torch_tacorl as taco
 from tests.test_torch_cql import _t, aug_draws, cql_draws, leaf_key, np_tree
 from tests.test_torch_trainer import train_draws
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 K, SEED = 3, 0
 

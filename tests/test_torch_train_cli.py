@@ -25,6 +25,9 @@ from tacorl_tpu_torch.data.storage import pack_frames
 from tacorl_tpu_torch.data.synthetic import generate_synthetic_calvin
 from tacorl_tpu_torch.networks import plan_recognition as pr
 from tacorl_tpu_torch.utils.convert import plan_recognition_state_dict
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 REPO = Path(__file__).resolve().parent.parent
 CONFIGS = REPO / "configs"

@@ -40,6 +40,9 @@ from tacorl_tpu_torch.data.loader import DataLoader
 from tacorl_tpu_torch.modules.play_lmp import PlayLMPModule
 from tacorl_tpu_torch.utils.convert import play_lmp_state_dict_from_jax
 from tests.test_torch_play_lmp import LR, PAD, _batch, _cfg, _np_tree
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 LATENT, B, MAX_WS, RAW = 16, 8, 5, 56  # batch 8: the JAX test mesh has 8 devices
 SEED = 3

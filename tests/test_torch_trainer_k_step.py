@@ -40,6 +40,9 @@ from tacorl_tpu_torch.core.checkpoint import CheckpointManager
 from tacorl_tpu_torch.utils.convert import play_lmp_state_dict_from_jax
 from tests.test_torch_cql import np_tree
 from tests.test_torch_train_cli import CONFIGS, TINY, _rows, calvin  # noqa: F401 (a fixture)
+from tests.torch_threads import share_cores
+
+share_cores()  # the xdist workers share the cores
 
 SEED = 42  # configs/train.yaml's: it comes after the experiment
 B, MAX_WS, PAD, LATENT = 8, 8, 2, 16
