@@ -318,25 +318,46 @@ def test_tacorl_converted_by_both_computes_the_same_q_and_plans(converted_lmps, 
                                + ref["action_decoder.rnn.bias_hh_l0"][:32], rtol=0, atol=0)
 
 
-def test_evaluate_scores_a_converted_checkpoint(tmp_path):
+@pytest.fixture(scope="module")
+def eval_set(tmp_path_factory):
+    from tacorl_tpu_torch.data.expert_play import generate_expert_play
+
+    root = tmp_path_factory.mktemp("eval_set")
+    generate_expert_play(root, n_train_episodes=1, n_val_episodes=2, tasks_per_episode=2,
+                         idle_steps=(3, 5), seed=3, distinct_tasks=True)
+    return root / "validation"
+
+
+def _convert_for_evaluate(kind, root):
+    """A Lightning checkpoint of ``kind`` converted by the port, its module
+    config given the evaluation transforms a camera frame needs (a tacorl
+    one names a converted Play-LMP); returns the run directory."""
+    rgb = {"rgb_static": {"kind": "rgb", "size": [HW, HW]}}
+    if kind == "tacorl":
+        lmp = _convert_for_evaluate("play_lmp", root)
+        cfg = tacorl_cfg(lmp, "lstm")
+    else:
+        cfg = {"play_lmp": lmp_cfg("lstm"), "cql": CQL_CFG, "ril": RIL_CFG}[kind]
+    cfg = dict(cfg, transforms=rgb)
+    ckpt = write_lightning(reference_model(kind, "lstm"), root / f"{kind}.ckpt")
+    save_yaml(cfg, root / f"{kind}.yaml")  # a bare module config is read as well
+    convert_checkpoint.main(["--ckpt", str(ckpt), "--module-config", str(root / f"{kind}.yaml"),
+                             "--out", str(root / kind), "--kind", kind, "--device", "cpu"])
+    return root / kind
+
+
+@pytest.mark.parametrize("kind", ["play_lmp", "cql", "tacorl", "ril"])
+def test_evaluate_scores_a_converted_checkpoint(eval_set, tmp_path, kind):
     """``python -m tacorl_tpu_torch.evaluate`` loads what the converter
     wrote (step 0) and scores it with the short-horizon protocol."""
     import json
 
     from tacorl_tpu_torch import evaluate
-    from tacorl_tpu_torch.data.expert_play import generate_expert_play
 
-    cfg = lmp_cfg("lstm")
-    cfg["transforms"] = {"rgb_static": {"kind": "rgb", "size": [HW, HW]}}
-    ckpt = write_lightning(reference_play_lmp("lstm"), tmp_path / "play_lmp.ckpt")
-    save_yaml(cfg, tmp_path / "module.yaml")  # a bare module config is read as well
-    convert_checkpoint.main(["--ckpt", str(ckpt), "--module-config", str(tmp_path / "module.yaml"),
-                             "--out", str(tmp_path / "run"), "--device", "cpu"])
-    generate_expert_play(tmp_path / "data", n_train_episodes=1, n_val_episodes=2, tasks_per_episode=2,
-                         idle_steps=(3, 5), seed=3, distinct_tasks=True)
+    run = _convert_for_evaluate(kind, tmp_path)
     out = tmp_path / "results.json"
     evaluate.main([
-        "+device=cpu", f"module_path={tmp_path / 'run'}", f"data_dir={tmp_path / 'data' / 'validation'}",
+        "+device=cpu", f"module_path={run}", f"data_dir={eval_set}",
         "eval_type=short_horizon", f"filename={out}", "min_seq_len=1", "max_seq_len=400",
         "max_rollouts=1", "plan_duration=3", "env.max_episode_steps=4",
     ])
