@@ -295,6 +295,20 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 (the kl_loss spike of results/torch_r12_ddp/ run J: the
                 pass moved the RNN weights under the graph; StepGraph now
                 captures again).
+ 37. train_tp   tensor parallelism: (a) the production Play-LMP at
+                (dp, mp) = (1, 2), two gloo ranks sharing the card
+                (``python3 chip_smoke.py --tp-child <spec>``), eager, the
+                JAX dry run's four rules (``PLAY_LMP_RULES``) sharding the
+                posterior's fc and linear1 and the decoder's heads, 8 steps
+                against one rank's mp = 1 run of the same weights and
+                batches: the first row at rtol 1e-4, later rows at
+                DDP_ROW_RTOL, the replicated weights bit-equal on the two
+                ranks, the gathered weights atol 2.5 lr a step; kernel 1
+                once a step a rank, and against its plain version on a
+                rank's frames; (b) the run's checkpoint (the unsharded
+                layout) loaded at mp = 1: the same val loss at rtol 1e-4;
+                (c) ``dryrun_multichip(2)`` on the card; ms/step of (a)
+                beside one rank's.
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -3093,8 +3107,9 @@ def _online_kernel_check(module) -> dict:
         n = frames.shape[0]
         shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device="cuda")
         x = image_aug.resize_shift(frames, shifts, size, pad, dtype=torch.bfloat16).contiguous()
-        f = sample_jitter_factors(n, g, brightness=cfg["brightness"], contrast=cfg["contrast"],
-                                  hue=cfg["hue"], prob=cfg["jitter_prob"])
+        # the transform's ranges, its defaults where the config names none
+        f = sample_jitter_factors(n, g, brightness=cfg.get("brightness", 0.1), contrast=cfg.get("contrast", 0.1),
+                                  hue=cfg.get("hue", 0.02), prob=cfg.get("jitter_prob", 1.0))
         return x, f
 
     out = {}
@@ -3411,8 +3426,9 @@ def _scan_kernel_check(tag: str, trainer, leaves) -> float:
         n = frames.shape[0]
         shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device="cuda")
         x = image_aug.resize_shift(frames, shifts, size, pad, dtype=torch.bfloat16).contiguous()
-        f = sample_jitter_factors(n, g, brightness=cfg["brightness"], contrast=cfg["contrast"],
-                                  hue=cfg["hue"], prob=cfg["jitter_prob"])
+        # the transform's ranges, its defaults where the config names none
+        f = sample_jitter_factors(n, g, brightness=cfg.get("brightness", 0.1), contrast=cfg.get("contrast", 0.1),
+                                  hue=cfg.get("hue", 0.02), prob=cfg.get("jitter_prob", 1.0))
         worst = max(worst, _compare(jitter_normalize(x, f), jitter_normalize_reference(x, f), BF16_ATOL,
                                     f"{tag}: jitter_normalize vs plain on the graphed run's {leaf} frames"))
     return worst
@@ -4185,7 +4201,8 @@ def _ddp_child(spec_path: str) -> int:
         if stage["kernel_leaves"]:
             batch = trainer._current_batch
             r["frames"] = [list(batch[leaf]["rgb_static"].shape[:-3]) for leaf in stage["kernel_leaves"]]
-            r["kernel_err"] = _shard_kernel_check(stage["name"], probe, batch, stage["kernel_leaves"])
+            r["kernel_err"] = _shard_kernel_check(f"train_ddp/{stage['name']}", probe.module, batch,
+                                                  stage["kernel_leaves"])
         if stage["save_params"]:
             torch.save(_params(trainer), out / f"{stage['name']}_params_rank{rank}.pt")
         results[stage["name"]] = r
@@ -4197,11 +4214,11 @@ def _ddp_child(spec_path: str) -> int:
     return 0
 
 
-def _shard_kernel_check(tag: str, probe, batch, leaves) -> float:
+def _shard_kernel_check(tag: str, module, batch, leaves) -> float:
     """jitter_normalize against its plain version on a rank's own frames (the
     last batch it trained on), resized and shifted to 128x128 bf16 with the
     transform's ranges."""
-    cfg = probe.module.transforms.cfg["rgb_static"]
+    cfg = module.transforms.cfg["rgb_static"]
     g = torch.Generator(device="cuda").manual_seed(17)
     pad, size = int(cfg["pad"]), tuple(cfg["size"])
     worst = 0.0
@@ -4211,14 +4228,15 @@ def _shard_kernel_check(tag: str, probe, batch, leaves) -> float:
         n = frames.shape[0]
         shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=g, device="cuda")
         x = image_aug.resize_shift(frames, shifts, size, pad, dtype=torch.bfloat16).contiguous()
-        f = sample_jitter_factors(n, g, brightness=cfg["brightness"], contrast=cfg["contrast"],
-                                  hue=cfg["hue"], prob=cfg["jitter_prob"])
+        # the transform's ranges, its defaults where the config names none
+        f = sample_jitter_factors(n, g, brightness=cfg.get("brightness", 0.1), contrast=cfg.get("contrast", 0.1),
+                                  hue=cfg.get("hue", 0.02), prob=cfg.get("jitter_prob", 1.0))
         worst = max(worst, _compare(jitter_normalize(x, f), jitter_normalize_reference(x, f), BF16_ATOL,
-                                    f"train_ddp/{tag}: jitter_normalize vs plain on a rank's {leaf} frames"))
+                                    f"{tag}: jitter_normalize vs plain on a rank's {leaf} frames"))
     return worst
 
 
-def _spawn_ranks(tag: str, spec: dict, world: int, env_of) -> list:
+def _spawn_ranks(tag: str, spec: dict, world: int, env_of, child_flag: str = "--ddp-child") -> list:
     """``world`` ranks of this script in ``--ddp-child`` mode, with the
     launcher's environment (``env_of(rank)`` adds to it); waits for all of
     them, ends them all if one fails or the wait times out, and returns each
@@ -4232,7 +4250,7 @@ def _spawn_ranks(tag: str, spec: dict, world: int, env_of) -> list:
         for r in range(world):
             logs.append(open(out / f"rank{r}.log", "w"))
             env = dict(base, WORLD_SIZE=str(world), RANK=str(r), **env_of(r))
-            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--ddp-child",
+            procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()), child_flag,
                                            str(out / "spec.json")], env=env, stdout=logs[-1],
                                           stderr=subprocess.STDOUT))
         deadline = time.time() + DDP_TIMEOUT_S
@@ -4739,6 +4757,175 @@ def phase_tooling(card: str, root: str, train_data: str) -> dict:
     }
 
 
+# -- tensor parallelism: the (dp, mp) mesh and shard_params_by_rule on the card -----------
+
+TP_STEPS = 8
+TP_TIMED = (2, 8)  # ms/step over steps 3-8 (a sync after every step)
+TP_WORLD = 2  # (dp, mp) = (1, 2): two gloo ranks sharing the card
+
+
+def _tp_batch(g: int) -> dict:
+    """The production batch of step ``g``, drawn on the card from a seed
+    (the same on every rank and in the one-rank run)."""
+    gen = torch.Generator(device="cuda").manual_seed(1000 + g)
+    frames = torch.randint(0, 255, (BATCH, WINDOW, RAW_HW, RAW_HW, 3), generator=gen, device="cuda",
+                           dtype=torch.uint8)
+    actions = torch.randn((BATCH, WINDOW, 7), generator=gen, device="cuda").clamp(-1, 1)
+    return {"states": {"rgb_static": frames}, "actions": actions, "idx": torch.arange(BATCH, device="cuda")}
+
+
+def _tp_run(module, state, m) -> dict:
+    """TP_STEPS eager steps of the production Play-LMP on ``m``'s dp rows
+    (the trainer's per-step seeding), then the val step's loss on batch
+    100; each row averaged over dp."""
+    from tacorl_tpu_torch.core.graphs import seed_generators
+    from tacorl_tpu_torch.parallel import mesh
+
+    shard = mesh.batch_sharding(m)
+    step, rows, ms = module.make_train_step(), [], []
+    for g in range(TP_STEPS):
+        batch = mesh.shard_batch(_tp_batch(g), m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        seed_generators(module, module.device, 0, g)
+        with mesh.sharded_draws(shard):
+            state, metrics = step(state, batch, module.step_scalars())
+        rows.append({k: float(v) for k, v in mesh.sync_metrics(metrics).items()})  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return {"rows": rows, "ms": statistics.median(ms[TP_TIMED[0]:TP_TIMED[1]]), "batch": batch,
+            "val": _tp_val(module, state, m)}
+
+
+def _tp_val(module, state, m) -> float:
+    from tacorl_tpu_torch.core.graphs import seed_generators
+    from tacorl_tpu_torch.parallel import mesh
+
+    seed_generators(module, module.device, 1, 0)
+    with mesh.sharded_draws(mesh.batch_sharding(m)):
+        metrics, _ = module.make_val_step()(state, mesh.shard_batch(_tp_batch(100), m), module.step_scalars())
+    return float(mesh.sync_metrics({"loss": metrics["total_loss"]})["loss"])
+
+
+def _tp_child(spec_path: str) -> int:
+    """One rank of phase train_tp (``python3 chip_smoke.py --tp-child
+    <spec>``): the production Play-LMP on a (1, 2) mesh, the four rules
+    sharding it, TP_STEPS eager steps, its checkpoint (gathered: the
+    unsharded layout); writes what the parent holds to
+    ``<out>/rank<r>.json`` and its replicated weights beside it."""
+    import torch.distributed as dist
+
+    from tacorl_tpu_torch.parallel import mesh
+    from tacorl_tpu_torch.parallel.tensor_parallel import PLAY_LMP_RULES, shard_of, shard_params_by_rule
+
+    spec = json.loads(Path(spec_path).read_text())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    rank, out = int(os.environ["RANK"]), Path(spec["out"])
+    dist.init_process_group("gloo", init_method=f"file://{spec['rendezvous']}", rank=rank,
+                            world_size=int(os.environ["WORLD_SIZE"]))
+    m = mesh.create_mesh(dp=1, mp=TP_WORLD)
+    module = PlayLMPModule(PRODUCTION_CFG, device="cuda")
+    state = module.init_state(0)
+    plan = shard_params_by_rule(state.net, m, PLAY_LMP_RULES, optimizer=state.optimizer)
+    mesh.replicate(state)
+    jitter_normalize.launches = 0
+    run = _tp_run(module, state, m)
+    launches = jitter_normalize.launches
+    err = _shard_kernel_check("train_tp", module, {"states": run["batch"]["states"]}, ["states"])
+    CheckpointManager(spec["ckpt"], config={"module": {"_target_": LMP_TARGET, **PRODUCTION_CFG}}).save(TP_STEPS, state)
+    torch.save({k: p.detach().cpu() for k, p in state.net.named_parameters() if shard_of(p) is None},
+               out / f"replicated_rank{rank}.pt")
+    shards = {k: list(p.shape) for k, p in state.net.named_parameters() if shard_of(p) is not None}
+    (out / f"rank{rank}.json").write_text(json.dumps({
+        "rows": run["rows"], "ms": run["ms"], "val": run["val"], "launches": launches, "kernel_err": err,
+        "sharded": sorted(plan), "shards": shards, "mp_index": m.mp_index}))
+    mesh.destroy_distributed()
+    return 0
+
+
+def phase_train_tp(card: str, root: str) -> dict:
+    """Tensor parallelism: (a) the production Play-LMP at (dp, mp) = (1, 2),
+    two gloo ranks sharing the card (NCCL refuses two ranks on one card),
+    eager, the JAX dry run's four rules sharding the posterior's fc and
+    linear1 and the decoder's heads, TP_STEPS steps held against one
+    rank's mp = 1 run of the same weights and batches: the first row
+    within rtol 1e-4, later rows within DDP_ROW_RTOL, the replicated
+    weights bit-equal on the two ranks, the gathered weights within atol
+    2.5 lr a step; (b) the run's checkpoint (the unsharded layout) loaded
+    at mp = 1: the same val loss at rtol 1e-4; (c) dryrun_multichip(2) on
+    the card. Returns kernel 1's launches a rank and its error on a rank's
+    frames."""
+    from tacorl_tpu_torch.dryrun import dryrun_multichip
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    out = Path(root)
+    spec = {"rendezvous": str(out / "rendezvous"), "out": str(out), "ckpt": str(out / "ckpt")}
+    res = _spawn_ranks("train_tp (a)", spec, TP_WORLD, lambda r: {}, child_flag="--tp-child")
+    wall = time.perf_counter() - t0
+    module = PlayLMPModule(PRODUCTION_CFG, device="cuda")
+    state = module.init_state(0)
+    jitter_normalize.launches = 0
+    one = _tp_run(module, state, None)
+    one_launches = jitter_normalize.launches
+    one_params = {k: v.detach().cpu() for k, v in state.net.state_dict().items()}
+    del module, state
+    torch.cuda.empty_cache()
+    tag, lr = "train_tp (a)", PRODUCTION_CFG["lr"]
+    errs = []
+    for g, (row, ref) in enumerate(zip(res[0]["rows"], one["rows"])):
+        _check(set(row) == set(ref), f"{tag}: other metrics than one rank's at step {g + 1}")
+        err, key = max((abs(row[k] - ref[k]) / max(abs(ref[k]), 1e-6), k) for k in ref)
+        rtol = 1e-4 if g == 0 else DDP_ROW_RTOL
+        _check(err <= rtol, f"{tag}: {key} at step {g + 1} differs from one rank's by {err:.3g} (rtol {rtol:g}): "
+               f"{row[key]} vs {ref[key]}")
+        errs.append(err)
+    _check(res[0]["rows"] == res[1]["rows"], f"{tag}: the two ranks logged other rows")
+    for r, rr in enumerate(res):
+        _check(rr["launches"] == TP_STEPS == one_launches,
+               f"{tag} rank {r}: {rr['launches']} jitter_normalize launches in {TP_STEPS} steps (one rank: "
+               f"{one_launches})")
+        _check(len(rr["sharded"]) == 6 and rr["mp_index"] == r, f"{tag} rank {r}: sharded {rr['sharded']}")
+    rep = [torch.load(out / f"replicated_rank{r}.pt", weights_only=True) for r in range(TP_WORLD)]
+    apart = [k for k, v in rep[0].items() if not torch.equal(v, rep[1][k])]
+    _check(not apart and len(rep[0]) > 0, f"{tag}: the replicated weights differ on the two ranks: {apart[:3]}")
+    saved = CheckpointManager(spec["ckpt"]).restore()
+    _check({k: tuple(v.shape) for k, v in saved["net"].items()} == {k: tuple(v.shape) for k, v in one_params.items()},
+           f"{tag}: the checkpoint's tensors are not the unsharded layout")
+    param_err = _hold_params(tag, saved["net"], one_params, lr, TP_STEPS)
+    # (b) the checkpoint at mp = 1
+    module, loaded = load_module_from_checkpoint(spec["ckpt"], device="cuda")
+    val1 = _tp_val(module, loaded, None)
+    val_err = abs(val1 - res[0]["val"]) / abs(res[0]["val"])
+    _check(val_err <= 1e-4, f"train_tp (b): the mp = 2 checkpoint at mp = 1 gives val loss {val1} against "
+           f"{res[0]['val']} at mp = 2")
+    del module, loaded
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    dry = dryrun_multichip(2)
+    dry_s = time.perf_counter() - t1
+    _check(dry["mesh"] == {"dp": 1, "mp": 2} and len(dry["sharded"]) == 5, f"train_tp (c): {dry['mesh']}")
+    err = max(r["kernel_err"] for r in res)
+    print(f"[train_tp] (a) the production Play-LMP at (dp, mp) = (1, 2), two gloo ranks on the one card, "
+          f"eager, {TP_STEPS} steps, {len(res[0]['sharded'])} leaves sharded column-parallel ("
+          + ", ".join(f"{k} {v}" for k, v in res[0]["shards"].items()) + f"): the first row within {errs[0]:.3g} "
+          f"of one rank's mp = 1 run (rtol 1e-4), later rows within {max(errs[1:]):.3g} (rtol {DDP_ROW_RTOL:g}; "
+          + ", ".join(f"{g + 2}: {e:.2g}" for g, e in enumerate(errs[1:])) + f"), the replicated weights "
+          f"({len(rep[0])} tensors) bit-equal on the two ranks, the gathered weights within {param_err:.3g} of "
+          f"one rank's at step {TP_STEPS} (atol {2.5 * lr * TP_STEPS:.3g}); each rank {res[0]['launches']} "
+          f"jitter_normalize launches in {TP_STEPS} steps, vs plain on a rank's frames max abs err {err:.3g} "
+          f"(atol {BF16_ATOL}); ms/step over steps {TP_TIMED[0] + 1}-{TP_TIMED[1]}: mp = 2 {res[0]['ms']:.3f} "
+          f"(rank 1 {res[1]['ms']:.3f}), mp = 1 one rank {one['ms']:.3f} | the ranks {wall:.1f} s | {card}",
+          flush=True)
+    print(f"[train_tp] (b) the mp = 2 checkpoint loaded at mp = 1: val loss {val1:.6f} against {res[0]['val']:.6f} "
+          f"at mp = 2 (relative {val_err:.3g}, rtol 1e-4) | {card}", flush=True)
+    print(f"[train_tp] (c) dryrun_multichip(2) on the card: {dry['backend']} ranks, mesh {dry['mesh']}, loss "
+          f"{dry['play_lmp']['total_loss']:.4f}, the RL families' steps finite, in {dry_s:.1f} s | the phase took "
+          f"{time.perf_counter() - t0:.1f} s | {card}", flush=True)
+    return {"launches": {f"train_tp/gloo_mp2/rank{r}": rr["launches"] for r, rr in enumerate(res)},
+            "max_abs_err": err, "ms": res[0]["ms"], "one_ms": one["ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4797,6 +4984,8 @@ def main() -> int:
         launches_variants = phase_train_variants(card, f"{tmp}/variants", flat_data, pct)
         ddp = phase_train_ddp(card, f"{tmp}/ddp", scan)
         tooling = phase_tooling(card, f"{tmp}/tooling", train_data)
+        Path(f"{tmp}/tp").mkdir()
+        tp = phase_train_tp(card, f"{tmp}/tp")
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -4819,8 +5008,11 @@ def main() -> int:
         # (a) counted in the device trace of the rank's graph replays of steps 5-12; (b) by the wrapper, a rank's
         **ddp["launches"],
         **tooling,
+        # by the wrapper, a rank's, in the TP_STEPS steps of the (1, 2) mesh
+        **tp["launches"],
     }
     kernel["max_abs_err_train_ddp"] = ddp["max_abs_err"]
+    kernel["max_abs_err_train_tp"] = tp["max_abs_err"]
     kernel["max_abs_err_train_scan"] = max(v["kernel_err"] for v in scan.values())
     first = online_kernel[ONLINE_VISUAL[0]]
     kernel.update(
@@ -4856,4 +5048,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--ddp-child"]:
         sys.exit(_ddp_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--tp-child"]:
+        sys.exit(_tp_child(sys.argv[2]))
     sys.exit(main())

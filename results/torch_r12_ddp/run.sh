@@ -8,6 +8,7 @@
 #
 #   bash results/torch_r12_ddp/run.sh time <out_dir>   # 400 steps of each stage at each W
 #   bash results/torch_r12_ddp/run.sh lmp <out_dir>    # stage 1 only, at each W
+#   bash results/torch_r12_ddp/run.sh tacorl <out_dir> # stage 1 at W = 1, then stage 2 at each W
 #   bash results/torch_r12_ddp/run.sh steps <out_dir>  # play_lmp_fake's first 8 steps at W = 1 and 2,
 #                                                      # K = 2 (graphed), every chunk logged
 #
@@ -87,38 +88,42 @@ train() {  # train <W> <experiment> <run dir> <K> [overrides...]: W ranks over N
     seed=42 trainer.max_steps=400 "trainer.steps_per_call=$k" "$@"
 }
 
+lmp_run() {  # lmp_run <W>: stage 1 at W ranks, held against W = 1's
+  local w=$1
+  # lmp_config.yaml: batch 32, val_percentage 0.2, rollouts every 2 epochs
+  timed "play_lmp_fake_w$w" train "$w" play_lmp_fake "$work/lmp_w$w" 16 \
+    datamodule.val_percentage=0.2 callbacks.rollout.every_n_epochs=2
+  ms_per_step "$work/lmp_w$w/metrics.jsonl" "play_lmp_fake_w$w"
+  cp "$work/lmp_w$w/metrics.jsonl" "$out/play_lmp_fake_w$w.metrics.jsonl"
+  against_w1 "$work/lmp_w$w/metrics.jsonl" "$work/lmp_w1/metrics.jsonl" "play_lmp_fake_w$w"
+  weights_against_w1 "$work/lmp_w$w" "$work/lmp_w1" "play_lmp_fake_w$w"
+}
+
+tacorl_run() {  # tacorl_run <W>: stage 2 at W ranks, held against W = 1's
+  local w=$1
+  # tacorl_config.yaml: grafted from stage 1 (its W = 1 run), rollout_lh every 4 epochs
+  timed "tacorl_fake_w$w" train "$w" tacorl_fake "$work/tacorl_w$w" 8 \
+    "play_lmp_dir=$work/lmp_w1" callbacks.rollout_lh.every_n_epochs=4
+  ms_per_step "$work/tacorl_w$w/metrics.jsonl" "tacorl_fake_w$w"
+  cp "$work/tacorl_w$w/metrics.jsonl" "$out/tacorl_fake_w$w.metrics.jsonl"
+  against_w1 "$work/tacorl_w$w/metrics.jsonl" "$work/tacorl_w1/metrics.jsonl" "tacorl_fake_w$w"
+  weights_against_w1 "$work/tacorl_w$w" "$work/tacorl_w1" "tacorl_fake_w$w"
+}
+
 case "$mode" in
   time)
     timed make_flagship_data python -m tacorl_tpu_torch.make_flagship_data "$work/data"
-    for w in 1 2 4; do
-      # lmp_config.yaml: batch 32, val_percentage 0.2, rollouts every 2 epochs
-      timed "play_lmp_fake_w$w" train "$w" play_lmp_fake "$work/lmp_w$w" 16 \
-        datamodule.val_percentage=0.2 callbacks.rollout.every_n_epochs=2
-      ms_per_step "$work/lmp_w$w/metrics.jsonl" "play_lmp_fake_w$w"
-      cp "$work/lmp_w$w/metrics.jsonl" "$out/play_lmp_fake_w$w.metrics.jsonl"
-      against_w1 "$work/lmp_w$w/metrics.jsonl" "$work/lmp_w1/metrics.jsonl" "play_lmp_fake_w$w"
-      weights_against_w1 "$work/lmp_w$w" "$work/lmp_w1" "play_lmp_fake_w$w"
-    done
-    for w in 1 2 4; do
-      # tacorl_config.yaml: grafted from stage 1 (its W = 1 run), rollout_lh every 4 epochs
-      timed "tacorl_fake_w$w" train "$w" tacorl_fake "$work/tacorl_w$w" 8 \
-        "play_lmp_dir=$work/lmp_w1" callbacks.rollout_lh.every_n_epochs=4
-      ms_per_step "$work/tacorl_w$w/metrics.jsonl" "tacorl_fake_w$w"
-      cp "$work/tacorl_w$w/metrics.jsonl" "$out/tacorl_fake_w$w.metrics.jsonl"
-      against_w1 "$work/tacorl_w$w/metrics.jsonl" "$work/tacorl_w1/metrics.jsonl" "tacorl_fake_w$w"
-      weights_against_w1 "$work/tacorl_w$w" "$work/tacorl_w1" "tacorl_fake_w$w"
-    done
+    for w in 1 2 4; do lmp_run "$w"; done
+    for w in 1 2 4; do tacorl_run "$w"; done
+    ;;
+  tacorl)
+    timed make_flagship_data python -m tacorl_tpu_torch.make_flagship_data "$work/data"
+    lmp_run 1
+    for w in 1 2 4; do tacorl_run "$w"; done
     ;;
   lmp)
     timed make_flagship_data python -m tacorl_tpu_torch.make_flagship_data "$work/data"
-    for w in 1 2 4; do
-      timed "play_lmp_fake_w$w" train "$w" play_lmp_fake "$work/lmp_w$w" 16 \
-        datamodule.val_percentage=0.2 callbacks.rollout.every_n_epochs=2
-      ms_per_step "$work/lmp_w$w/metrics.jsonl" "play_lmp_fake_w$w"
-      cp "$work/lmp_w$w/metrics.jsonl" "$out/play_lmp_fake_w$w.metrics.jsonl"
-      against_w1 "$work/lmp_w$w/metrics.jsonl" "$work/lmp_w1/metrics.jsonl" "play_lmp_fake_w$w"
-      weights_against_w1 "$work/lmp_w$w" "$work/lmp_w1" "play_lmp_fake_w$w"
-    done
+    for w in 1 2 4; do lmp_run "$w"; done
     ;;
   steps)
     python -c "from tacorl_tpu_torch.data.expert_play import generate_expert_play as g; g('$work/play', 8, 2, seed=3)"

@@ -9,9 +9,10 @@ port's own format:
     <dir>/ckpts/metrics.json        step -> monitored metric
 
 Under a process group rank 0 alone writes (the config, each save, the
-metrics file, and retention's deletions) and every rank waits at a barrier
-after a save, so every rank can restore it; every rank keeps the same
-scores in memory, so ``best_step`` agrees.
+metrics file, and retention's deletions; a save of an mp-sharded state
+holds the full tensors, which every rank gathers first: ``TrainState``)
+and every rank waits at a barrier after a save, so every rank can restore
+it; every rank keeps the same scores in memory, so ``best_step`` agrees.
 
 Retention is the JAX package's: at most ``max_to_keep`` saves, the latest
 always kept, the rest the best by ``monitor`` (``mode`` max or min). A save
@@ -76,12 +77,14 @@ class CheckpointManager:
         self, step: int, state: Any, metrics: Optional[Dict[str, float]] = None
     ) -> None:
         """``state`` is a TrainState (or anything with ``state_dict``);
-        ``metrics`` may hold the monitored value of this save."""
+        ``metrics`` may hold the monitored value of this save. Every rank
+        calls it: an mp-sharded state gathers its shards first."""
+        sd = state.state_dict()
         if self.is_main:
             path = self._path(step)
             path.parent.mkdir(parents=True, exist_ok=True)
             partial = path.with_suffix(".tmp")
-            torch.save(state.state_dict(), partial)
+            torch.save(sd, partial)
             partial.replace(path)
         if metrics and self.monitor and self.monitor in metrics:
             self._metrics[str(step)] = float(metrics[self.monitor])

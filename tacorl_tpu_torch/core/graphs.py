@@ -34,7 +34,11 @@ warm-up steps (their collectives in the same order, after the state's
 broadcast made the communicator) and captures the same step. Only NCCL
 collectives can be captured: under a gloo group (the CPU tests, two ranks
 sharing one card) a capture raises, naming the reason, and such a run
-takes ``trainer.steps_per_call=1``.
+takes ``trainer.steps_per_call=1``. On a ``(dp, mp)`` mesh with
+mp-sharded layers (``parallel/tensor_parallel.py``) the mp collectives
+(each sharded layer's all-gather and input-gradient all-reduce, the global
+norm's mp sum) are captured the same way; shard before the first capture,
+or the moved parameters make the next call capture again.
 
 ``seed_generators`` and ``step_seed`` are the per-step seeding both paths
 share (``core/trainer.py``).

@@ -6,10 +6,11 @@ defaults (b1 0.9, b2 0.999, eps 1e-8), optionally behind global-norm
 clipping, ``optax.chain(optax.clip_by_global_norm(c), optax.adam(lr))``.
 A group steps on the gradients it is handed, so a loss reaches only the
 group its gradients were taken for. Under a process group the gradients
-are first averaged over the ranks (``parallel/mesh.py:all_reduce_mean``,
+are first averaged over the dp ranks (``parallel/mesh.py:all_reduce_mean``,
 one collective a group, before the clip, so the clip sees the global
 gradient); ``reduce_gradients`` does the same for a plain optimizer's
-``.grad`` before its gradient norm and step.
+``.grad`` before its gradient norm and step. The global norm of a group
+with mp-sharded parameters sums their squares over the mp group.
 
 ``set_capturable`` switches any of the port's optimizers between the eager
 mode and ``capturable=True``, the mode a CUDA graph of the train step needs
@@ -23,9 +24,10 @@ import dataclasses
 from typing import Dict, List, Optional, Sequence
 
 import torch
+import torch.distributed as dist
 from torch import Tensor
 
-from tacorl_tpu_torch.parallel.mesh import all_reduce_mean
+from tacorl_tpu_torch.parallel.mesh import all_reduce_mean, shard_of
 
 __all__ = [
     "GroupOptimizer", "clip_by_global_norm", "global_norm", "reduce_gradients", "set_capturable",
@@ -33,17 +35,34 @@ __all__ = [
 ]
 
 
-def global_norm(tensors: Sequence[Tensor]) -> Tensor:
-    """optax.global_norm: the l2 norm over all leaves."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(list(tensors))))
+def global_norm(tensors: Sequence[Tensor], params: Optional[Sequence[Tensor]] = None) -> Tensor:
+    """optax.global_norm: the l2 norm over all leaves. ``params``, one a
+    tensor, say which tensors are mp shards
+    (``parallel/tensor_parallel.py:shard_of``): their sum of squares is
+    summed over the mp group before the root, so the norm is the whole
+    tree's, as XLA computes it over sharded leaves."""
+    tensors = list(tensors)
+    shards = [shard_of(p) for p in params] if params is not None else []
+    if not any(s is not None for s in shards):
+        return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)))
+    whole = [t for t, s in zip(tensors, shards) if s is None]
+    parts = [t for t, s in zip(tensors, shards) if s is not None]
+    sq = torch.stack(torch._foreach_norm(parts)).square().sum()
+    dist.all_reduce(sq, group=next(s for s in shards if s is not None).mesh.mp_group)
+    if whole:
+        sq = sq + torch.stack(torch._foreach_norm(whole)).square().sum()
+    return torch.sqrt(sq)
 
 
-def clip_by_global_norm(grads: Sequence[Tensor], max_norm: float) -> List[Tensor]:
+def clip_by_global_norm(
+    grads: Sequence[Tensor], max_norm: float, params: Optional[Sequence[Tensor]] = None
+) -> List[Tensor]:
     """optax.clip_by_global_norm, formula for formula:
     where(n < c, g, g / n * c). (``torch.nn.utils.clip_grad_norm_``
-    instead scales by c / (n + 1e-6).) Stays on the device: no sync."""
+    instead scales by c / (n + 1e-6).) Stays on the device: no sync.
+    ``params`` as in ``global_norm``."""
     grads = list(grads)
-    norm = global_norm(grads)
+    norm = global_norm(grads, params)
     clipped = torch._foreach_mul(torch._foreach_div(grads, norm), max_norm)
     keep = norm < max_norm
     return [torch.where(keep, g, c) for g, c in zip(grads, clipped)]
@@ -75,11 +94,11 @@ class GroupOptimizer:
 
     def step_group(self, name: str, grads: Sequence[Tensor]) -> None:
         """One update of group ``name`` with ``grads``, one per parameter
-        (averaged over the ranks first)."""
+        (averaged over the dp ranks first)."""
         group = self.groups[name]
         grads = all_reduce_mean(grads)
         if group.clip is not None:
-            grads = clip_by_global_norm(grads, group.clip)
+            grads = clip_by_global_norm(grads, group.clip, group.params)
         for p, g in zip(group.params, grads):
             p.grad = g
         group.optimizer.step()
@@ -95,7 +114,7 @@ class GroupOptimizer:
 
 
 def reduce_gradients(params) -> List[Tensor]:
-    """Each parameter's ``.grad`` averaged over the ranks, in place (one
+    """Each parameter's ``.grad`` averaged over the dp ranks, in place (one
     collective a dtype); returns the gradients that exist."""
     return all_reduce_mean([p.grad for p in params if p.grad is not None])
 

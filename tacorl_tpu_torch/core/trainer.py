@@ -36,13 +36,16 @@ chunk, so ``max_steps`` may be overshot by up to K - 1. Online modules
 (``supports_scan = False``) train one step at a time under any K.
 
 Data-parallel (W ranks under a process group, ``parallel/mesh.py``), as
-the JAX trainer's one controller over a ``dp`` mesh: ``batch_size`` is the
-global batch, and each rank's loader gives it its rows of every global
+the JAX trainer's one controller over a mesh (``mesh``: a ``(dp, mp)``
+mesh from ``create_mesh``, by default every rank on ``dp``; the state is
+replicated over ``mp``, as JAX's ``replicated_sharding`` does, and the
+ranks of one dp index take the same rows): ``batch_size`` is the
+global batch, and each rank's loader gives it its dp rows of every global
 batch (train and validation; ``limit_val_batches`` counts global batches);
 the state is broadcast from rank 0 after init or resume; the steps run
 inside ``sharded_draws``, so a rank's draws are its rows of the global
 batch's; the steps average their gradients over the ranks; a logging
-step's metrics and the validation means are averaged over the ranks
+step's metrics and the validation means are averaged over the dp ranks
 before they reach the host, so every rank logs, ranks checkpoints and
 stops on the same numbers; rank 0 alone writes (``core/logging.py``,
 ``core/checkpoint.py``, the callbacks' state). At one rank each of these
@@ -76,7 +79,16 @@ from tacorl_tpu_torch.core.graphs import seed_generators, step_seed
 from tacorl_tpu_torch.core.logging import MetricsSink
 from tacorl_tpu_torch.core.optimizers import set_capturable
 from tacorl_tpu_torch.data.loader import DevicePut, device_prefetch
-from tacorl_tpu_torch.parallel.mesh import batch_sharding, rank, replicate, sharded_draws, sync_metrics
+from tacorl_tpu_torch.parallel.mesh import (
+    Mesh,
+    batch_sharding,
+    create_mesh,
+    current_mesh,
+    rank,
+    replicate,
+    sharded_draws,
+    sync_metrics,
+)
 from tacorl_tpu_torch.utils import resolve_device
 
 logger = logging.getLogger("tacorl_tpu_torch")
@@ -130,8 +142,12 @@ class Trainer:
         log_every_n_steps: int = 50,
         steps_per_call: int = 1,
         draw_source: Optional[DrawSource] = None,
+        mesh: Optional[Mesh] = None,
     ):
         self.device = resolve_device(device)
+        # None: create_mesh() when fit starts (the process group may be
+        # joined after the trainer is made)
+        self.mesh = mesh
         self.max_epochs = max_epochs
         self.max_steps = max_steps
         self.val_every_n_epochs = val_every_n_epochs
@@ -189,6 +205,10 @@ class Trainer:
         if resolve_device(module.device) != self.device:
             raise ValueError(f"module on {module.device}, trainer on {self.device}")
         self.datamodule = datamodule
+        if self.mesh is None:
+            self.mesh = create_mesh()
+        elif self.mesh is not current_mesh():
+            raise ValueError("the trainer's mesh is not the last one create_mesh made, which the collectives use")
         online = hasattr(datamodule, "set_module")
         if online:
             datamodule.set_module(module)

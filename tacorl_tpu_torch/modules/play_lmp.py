@@ -41,7 +41,7 @@ from tacorl_tpu_torch.core.distributions import (
     balanced_kl,
     kl_diag_normal,
 )
-from tacorl_tpu_torch.core.optimizers import reduce_gradients
+from tacorl_tpu_torch.core.optimizers import global_norm, reduce_gradients
 from tacorl_tpu_torch.core.train_state import TrainState
 from tacorl_tpu_torch.data.transforms import DeviceTransforms, image_sizes
 from tacorl_tpu_torch.modules.base import AlgorithmModule, seeded_init, step_scalar
@@ -413,12 +413,12 @@ class PlayLMPModule(AlgorithmModule):
             with record_function("play_lmp/backward"):
                 total.backward()
             with record_function("play_lmp/adam"):
-                # the mean over the ranks first (no-op without a process group)
-                grads = reduce_gradients(net.parameters())
-                # optax.global_norm: the l2 norm over all gradient leaves
-                metrics["grad_norm"] = torch.linalg.vector_norm(
-                    torch.stack([torch.linalg.vector_norm(g) for g in grads])
-                )
+                # the mean over the dp ranks first (no-op without a process group)
+                params = [p for p in net.parameters() if p.grad is not None]
+                grads = reduce_gradients(params)
+                # optax.global_norm: the l2 norm over all gradient leaves,
+                # an mp shard's squares summed over its group
+                metrics["grad_norm"] = global_norm(grads, params)
                 state.optimizer.step()
             state.step += 1
             return state, {k: v.detach() for k, v in metrics.items()}

@@ -96,7 +96,10 @@ def reset_parameters(module: nn.Module) -> None:
 
 class TorchDense(nn.Linear):
     """Linear layer with the JAX package's init (U(+-1/sqrt(in)) or
-    U(+-init_w))."""
+    U(+-init_w)). ``tp``: how it computes with an mp-sharded weight
+    (``parallel/tensor_parallel.py:LinearShard``), None when it is whole."""
+
+    tp = None
 
     def __init__(
         self,
@@ -119,6 +122,8 @@ class TorchDense(nn.Linear):
     def forward(self, x: Tensor) -> Tensor:
         cd = self.compute_dtype
         w = self.weight if cd is None else self.weight.to(cd)
+        if self.tp is not None:
+            return self.tp(x.to(w.dtype), w, self.bias)
         y = F.linear(x.to(w.dtype), w)
         return y if self.bias is None else y + self.bias
 

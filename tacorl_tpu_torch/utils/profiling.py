@@ -33,8 +33,9 @@ def trace(log_dir, steps_context: str = "train") -> Iterator[torch.profiler.prof
     into ``log_dir`` as ``<host>.<pid>.pt.trace.json`` (TensorBoard's
     profile plugin reads it); the profiler is yielded, so a caller can read
     ``key_averages()``."""
+    cuda = torch.cuda.is_available()
     activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
+    if cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     log_dir = Path(log_dir)
     log_dir.mkdir(parents=True, exist_ok=True)
@@ -42,10 +43,26 @@ def trace(log_dir, steps_context: str = "train") -> Iterator[torch.profiler.prof
         activities=activities,
         on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)),
     ) as prof:
+        if cuda:
+            _settle()
         with torch.profiler.record_function(steps_context):
             yield prof
-        if torch.cuda.is_available():
-            torch.cuda.synchronize()
+        if cuda:
+            _settle()
+
+
+# The profiler drops a device event whose timestamp, moved onto the host's
+# clock, falls outside its window; on an H100 host that move was seen
+# landing a few ms early, and a span opened as the profiler started lost its
+# first step's first 36 kernels in 1 trace of 12 (none of 12 with this
+# margin; results/torch_r14_tp/trace_window.py). So the span opens, and the
+# profiler stops, SETTLE_S away from the window's edges.
+SETTLE_S = 0.05
+
+
+def _settle() -> None:
+    torch.cuda.synchronize()
+    time.sleep(SETTLE_S)
 
 
 def start_server(port: int = 9999):

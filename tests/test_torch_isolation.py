@@ -115,6 +115,8 @@ def probe():
         "tacorl_tpu_torch.evaluate_real_world",
         "tacorl_tpu_torch.evaluate_real_world_from_dataset",
         "tacorl_tpu_torch.measure_protocol_ceiling",
+        "tacorl_tpu_torch.dryrun",
+        "tacorl_tpu_torch.parallel.tensor_parallel",
     ],
 )
 def test_probe_imported_every_module(probe, name):
@@ -219,12 +221,13 @@ def _cql_cfg():
      "TACORLD4RLModule", "LatentPlanD4RLAgent", "TACORLD4RLAgent", "make_d4rl_agent",
      "evaluate_d4rl.main", "RILModule", "RILAgent", "OracleSubgoalAgent", "evaluate_ril_oracle.main",
      "SACModule", "CQLOnlineModule", "train.main online", "local_mesh_devices", "convert_checkpoint.main",
-     "evaluate_real_world.main", "evaluate_real_world_from_dataset.main"],
+     "evaluate_real_world.main", "evaluate_real_world_from_dataset.main", "dryrun_multichip"],
 )
 def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
     _no_cuda()
     from tacorl_tpu_torch import (
         convert_checkpoint,
+        dryrun,
         evaluate,
         evaluate_d4rl,
         evaluate_real_world,
@@ -295,6 +298,7 @@ def test_default_device_entry_points_raise_without_cuda(entry, tmp_path):
         "evaluate_real_world.main": lambda: evaluate_real_world.main([f"module_path={tmp_path}", "img_path=x"]),
         "evaluate_real_world_from_dataset.main": lambda: evaluate_real_world_from_dataset.main(
             [f"module_path={tmp_path}", "img_path=x", f"data_dir={tmp_path}"]),
+        "dryrun_multichip": lambda: dryrun.dryrun_multichip(2),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         make()

@@ -43,7 +43,7 @@ def test_local_mesh_devices_raises_without_a_card(monkeypatch):
 
 @pytest.mark.parametrize(
     "kwargs, error, match",
-    [({"mp": 2}, NotImplementedError, "item 18"), ({"dp": 2}, ValueError, "needs 2 ranks")],
+    [({"mp": 2}, ValueError, "not divisible by mp=2"), ({"dp": 2}, ValueError, "needs 2 ranks")],
 )
 def test_create_mesh_refuses(kwargs, error, match):
     with pytest.raises(error, match=match):
