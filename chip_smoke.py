@@ -309,6 +309,20 @@ power limit, and the last line ``{"ok": true, "device": {...}}``:
                 layout) loaded at mp = 1: the same val loss at rtol 1e-4;
                 (c) ``dryrun_multichip(2)`` on the card; ms/step of (a)
                 beside one rank's.
+ 38. train_hierarchy  the visual hierarchy's recipes of
+                results/torch_r15_visual/run.sh on the flagship set cut to
+                10 + 4 episodes (3 epochs of 16 batches of 32):
+                play_lmp_fake for 16 graph replays, then tacorl_fake grafted
+                from it at K=8, 2 BC epochs and one of CQL, ``rollout``
+                after every epoch and ``rollout_lh`` after the first,
+                against the eager run with capturable Adam: every row
+                within rtol 1e-4 and the rollout_lh rows equal, the
+                weights within atol 2.5 lr a step; the step graph's
+                captures at each epoch end (it captures again when a
+                rollout moved the net's weights); kernel 1's launches in
+                the device trace of the replays of steps 9-16 (2 a step)
+                and the kernel against its plain version on the graphed
+                run's own frames (bf16, atol 8e-3).
 
 Any failure raises, so the script exits non-zero and prints no last line.
 It imports nothing of JAX and nothing of the JAX package.
@@ -1451,6 +1465,15 @@ def _expert_validation(root) -> str:
     ROLLOUTS_PER_TASK verified single-task spans for each "hard" task."""
     generate_expert_play(root, n_train_episodes=0, n_val_episodes=6, image_hw=ROLLOUT_HW, seed=0)
     return f"{root}/validation"
+
+
+def _jitter_in_trace(events) -> int:
+    """jitter_normalize's kernel launches in a profile's device events."""
+    from torch.autograd import DeviceType
+
+    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
+    return sum(e.count for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
+               and "jitter_normalize_kernel" in e.key and "shift_" not in e.key)
 
 
 def _kernel_counts(events, steps: int):
@@ -3437,14 +3460,10 @@ def _scan_kernel_check(tag: str, trainer, leaves) -> float:
 def _traced_steps(probe) -> dict:
     """The device trace of the run's own replays of the steps in SCAN_TRACED:
     kernels, copies and device ms a step and kernel 1's launches in all."""
-    from torch.autograd import DeviceType
-
     steps = SCAN_TRACED[1] - SCAN_TRACED[0]
     events = probe.prof.key_averages()
     kernels, copies, device_ms = _kernel_counts(events, steps)
-    ranges = {e.key for e in events if e.device_type == DeviceType.CPU}
-    jitter = sum(e.count for e in events if e.device_type == DeviceType.CUDA and e.key not in ranges
-                 and "jitter_normalize_kernel" in e.key and "shift_" not in e.key)
+    jitter = _jitter_in_trace(events)
     return {"steps": steps, "kernels": kernels, "copies": copies, "device_ms": device_ms, "jitter": jitter}
 
 
@@ -4608,9 +4627,12 @@ def _tool_trace(card: str, root: str) -> dict:
     events = json.loads(files[0].read_text())["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel" and "jitter_normalize" in e.get("name", "")
                and "shift_" not in e["name"]]
+    span = [e for e in events if e.get("name") == "stage1_steps"]
+    _check(bool(span), "tooling (d): the span is not in the trace")
     _check(len(kernels) == TOOL_TRACE_STEPS == launches, f"tooling (d): {len(kernels)} jitter_normalize kernels "
-           f"in the trace, {launches} launches")
-    _check(any(e.get("name") == "stage1_steps" for e in events), "tooling (d): the span is not in the trace")
+           f"in the trace, {launches} launches; the kernels at "
+           f"{[round(e['ts'] - span[0]['ts']) for e in kernels]} us from the span's start, the span "
+           f"{round(span[0].get('dur', 0))} us, {sum(e.get('cat') == 'kernel' for e in events)} kernels in all")
     print(f"[tooling] (d) profiling.trace around {TOOL_TRACE_STEPS} production stage-1 steps: "
           f"{files[0].stat().st_size / 1e6:.1f} MB trace, {len(kernels)} jitter_normalize kernels in it "
           f"({kernels[0]['name'][:48]}...), {launches} launches, total_loss {float(metrics['total_loss']):.4f} | "
@@ -4926,6 +4948,132 @@ def phase_train_tp(card: str, root: str) -> dict:
             "max_abs_err": err, "ms": res[0]["ms"], "one_ms": one["ms"]}
 
 
+# -- the visual hierarchy's recipes across rollouts, graphed ------------------------------
+
+HIER_K, HIER_EPOCHS, HIER_BATCHES = 8, 3, 16  # stage 2: 3 epochs of 16 batches of 32, 2 chunks each
+HIER_TRACED = (8, 16)  # kernel 1 counted in the device trace of the replays of steps 9-16
+# results/torch_r15_visual/run.sh: stage 1 and stage 2 of the archived recipes
+HIER_LMP = ("experiment=play_lmp_fake", "seed=42", "datamodule.batch_size=32", "datamodule.val_percentage=0.2",
+            "trainer.steps_per_call=16")
+HIER_RL = ("experiment=tacorl_fake", "seed=42", "callbacks.rollout_lh.every_n_epochs=4",
+           "datamodule.dataset.goal_sampling_prob=0.4",
+           "datamodule.dataset.goal_strategy_prob.geometric=0.7",
+           "datamodule.dataset.goal_strategy_prob.similar_robot_obs=0.3")
+
+
+class _ReplayTrace(Callback):
+    """torch.profiler over the chunks that end after ``start`` up to
+    ``stop``, and the wrapper's own launches over the same span."""
+
+    def __init__(self, start: int, stop: int):
+        self.start, self.stop = start, stop
+        self.prof = None
+
+    def on_train_batch_end(self, trainer, module, metrics, step):
+        from torch.profiler import ProfilerActivity, profile
+
+        if step == self.stop:
+            torch.cuda.synchronize()
+            self.prof.__exit__(None, None, None)
+            self.eager_launches = jitter_normalize.launches - self.eager_launches
+        if step == self.start:
+            torch.cuda.synchronize()
+            self.eager_launches = jitter_normalize.launches
+            self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            self.prof.__enter__()
+
+
+def _hierarchy_data(root: str) -> tuple:
+    """The flagship recipe at 10 train and 4 validation episodes
+    (``make_flagship_data``); returns its root and the train_percentage
+    that makes an epoch HIER_BATCHES batches of 32."""
+    from tacorl_tpu_torch import make_flagship_data
+    from tacorl_tpu_torch.data.datamodule import BasicDataModule
+    from tacorl_tpu_torch.train import CONFIG_DIR
+
+    make_flagship_data.main(f"{root}/play", n_train_episodes=10, n_val_episodes=4)
+    cfg = compose(CONFIG_DIR, "train", [*HIER_RL, f"data_dir={root}/play", "play_lmp_dir=unused"])
+    dm_cfg = {k: v for k, v in cfg["datamodule"].items() if k != "_target_"}
+    dm = BasicDataModule(**dm_cfg)
+    dm.setup()
+    n = len(dm.train_dataset)
+    _check(n >= HIER_BATCHES * 32, f"train_hierarchy: {n} windows")
+    return f"{root}/play", (HIER_BATCHES * 32 + 0.5) / n
+
+
+def phase_train_hierarchy(card: str, root: str) -> dict:
+    """The visual hierarchy's recipes (results/torch_r15_visual/run.sh) on
+    a cut flagship set: play_lmp_fake for one chunk of 16 graph replays,
+    then tacorl_fake grafted from it at K = 8 for 3 epochs (2 BC epochs,
+    then CQL), ``rollout`` firing after every epoch and ``rollout_lh``
+    after the first, against the eager run with capturable Adam: every row
+    within rtol 1e-4, the weights within atol 2.5 lr a step; the step
+    graph's captures; kernel 1 twice a replayed step in the device trace
+    of steps 9-16, and against its plain version on the graphed run's own
+    frames. Returns kernel 1's launches and its error."""
+    from tacorl_tpu_torch import train
+
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    data, pct = _hierarchy_data(root)
+    cut = [f"data_dir={data}", f"datamodule.train_percentage={pct}"]
+    lmp = train.main([*HIER_LMP, *cut, f"run_dir={root}/lmp", f"trainer.max_steps={HIER_BATCHES}", "~callbacks.rollout"])
+    _check(lmp.step_graph.replays == HIER_BATCHES, f"train_hierarchy: stage 1 {lmp.step_graph.replays} replays")
+    del lmp
+    common = [*HIER_RL, *cut, f"play_lmp_dir={root}/lmp", f"trainer.max_epochs={HIER_EPOCHS}",
+              f"trainer.log_every_n_steps={HIER_K}", "callbacks.rollout.num_rollouts_per_task=1",
+              "callbacks.rollout_lh.num_rollouts=2"]
+    t1 = time.perf_counter()
+    eager = train.main(common + [f"run_dir={root}/eager"], callbacks=[_Capturable()])
+    eager_s, eager_params = time.perf_counter() - t1, _params(eager)
+    del eager
+    torch.cuda.empty_cache()
+    probe = _ReplayTrace(*HIER_TRACED)
+    t1 = time.perf_counter()
+    with _logged() as lines:
+        graphed = train.main(common + [f"run_dir={root}/graphed", f"trainer.steps_per_call={HIER_K}"],
+                             callbacks=[probe])
+    graphed_s = time.perf_counter() - t1
+    tag, graph = "train_hierarchy", graphed.step_graph
+    steps = HIER_EPOCHS * HIER_BATCHES
+    _check(graphed.global_step == steps == graph.replays, f"{tag}: {graph.replays} replays in {graphed.global_step} steps")
+    held, worst = _hold_rows(tag, f"{root}/graphed", f"{root}/eager")
+    lr = _max_lr(graph.module.cfg)
+    param_err = _hold_params(tag, _params(graphed), eager_params, lr, steps)
+    rows = _metrics_rows(f"{root}/graphed")
+    evals = [(r["step"], r["val_accuracy"]) for r in rows if "val_accuracy" in r]
+    lh = [r["step"] for r in rows if "LH_2_accuracy" in r]
+    _check([s for s, _ in evals] == [HIER_BATCHES * (e + 1) for e in range(HIER_EPOCHS)] and lh == [HIER_BATCHES],
+           f"{tag}: rollouts at {evals}, rollout_lh at {lh}")
+    epoch_lines = [m for m in lines if re.match(r"epoch \d+: ", m)]
+    captures = [int(re.search(r"captures (\d+)", m).group(1)) for m in epoch_lines]
+    _check(len(captures) == HIER_EPOCHS and captures[0] == 1 and captures[-1] == graph.captures
+           and captures == sorted(captures), f"{tag}: captures at the epoch ends {captures}, {graph.captures} in all")
+    want_lh = [{k: v for k, v in r.items() if k != "time"} for r in _metrics_rows(f"{root}/eager") if "LH_2_accuracy" in r]
+    _check([{k: v for k, v in r.items() if k != "time"} for r in rows if "LH_2_accuracy" in r] == want_lh,
+           f"{tag}: rollout_lh rows differ from the eager run's: {want_lh}")
+    traced = _jitter_in_trace(probe.prof.key_averages())
+    n_traced = HIER_TRACED[1] - HIER_TRACED[0]
+    _check(probe.eager_launches == 0 and traced == 2 * n_traced,
+           f"{tag}: {traced} jitter_normalize launches in the trace of {n_traced} replays, {probe.eager_launches} eager")
+    err = _scan_kernel_check(tag, graphed, ("states", "goal"))
+    loss = [round(r["train/action_loss"], 4) for r in rows if "train/action_loss" in r]
+    print(f"[{tag}] play_lmp_fake (16 replays) -> tacorl_fake grafted from it at K={HIER_K} on the cut flagship set "
+          f"({HIER_EPOCHS} epochs of {HIER_BATCHES} batches of 32, bc_epochs 2), rollout after every epoch "
+          f"(val_accuracy {evals}), rollout_lh after epoch 0 | against the eager run with capturable Adam: {held} "
+          f"rows within rtol 1e-4 (largest {worst:.3g}), weights at step {steps} within {param_err:.3g} (atol "
+          f"{2.5 * lr * steps:.3g}) | step graph captures at the epoch ends {captures}, {graph.replays} replays | "
+          f"train/action_loss {loss} | jitter_normalize {traced} launches in the device trace of the replays of "
+          f"steps {HIER_TRACED[0] + 1}-{HIER_TRACED[1]} (2 a step; the wrapper counted {probe.eager_launches} there), "
+          f"vs plain on the graphed run's frames max abs err {err:.3g} (atol {BF16_ATOL}) | train.main eager "
+          f"{eager_s:.1f} s, graphed {graphed_s:.1f} s | the phase took {time.perf_counter() - t0:.1f} s | {card}",
+          flush=True)
+    del graphed
+    torch.cuda.empty_cache()
+    return {"launches": {f"train_hierarchy/tacorl_fake/steps_{HIER_TRACED[0] + 1}-{HIER_TRACED[1]}": traced},
+            "max_abs_err": err}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -4986,6 +5134,8 @@ def main() -> int:
         tooling = phase_tooling(card, f"{tmp}/tooling", train_data)
         Path(f"{tmp}/tp").mkdir()
         tp = phase_train_tp(card, f"{tmp}/tp")
+        Path(f"{tmp}/hierarchy").mkdir()
+        hierarchy = phase_train_hierarchy(card, f"{tmp}/hierarchy")
     kernel["launches"] = launches_tacorl
     kernel["launches_by_path"] = {
         "slice": launches_lmp, "slice_tacorl": launches_tacorl,
@@ -5010,9 +5160,12 @@ def main() -> int:
         **tooling,
         # by the wrapper, a rank's, in the TP_STEPS steps of the (1, 2) mesh
         **tp["launches"],
+        # counted in the device trace of the graphed stage-2 run's replays of steps 9-16
+        **hierarchy["launches"],
     }
     kernel["max_abs_err_train_ddp"] = ddp["max_abs_err"]
     kernel["max_abs_err_train_tp"] = tp["max_abs_err"]
+    kernel["max_abs_err_train_hierarchy"] = hierarchy["max_abs_err"]
     kernel["max_abs_err_train_scan"] = max(v["kernel_err"] for v in scan.values())
     first = online_kernel[ONLINE_VISUAL[0]]
     kernel.update(

@@ -293,7 +293,11 @@ class Trainer:
                     break
             batches.close()
             host_batches.close()  # a stop mid-epoch cancels the loader's queued batches
-            logger.info("epoch %d: %d steps in %.1fs", epoch, n_batches, time.time() - t_epoch)
+            graph = self.step_graph
+            logger.info(
+                "epoch %d: %d steps in %.1fs%s", epoch, n_batches, time.time() - t_epoch,
+                "" if graph is None else f", step graph captures {graph.captures} replays {graph.replays}",
+            )
             if n_batches == 0:
                 raise RuntimeError(
                     "epoch produced zero train steps: empty dataset or "

@@ -44,6 +44,9 @@ def trace(log_dir, steps_context: str = "train") -> Iterator[torch.profiler.prof
         on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir)),
     ) as prof:
         if cuda:
+            warm = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_KERNELS):
+                warm.add_(1)
             _settle()
         with torch.profiler.record_function(steps_context):
             yield prof
@@ -51,13 +54,17 @@ def trace(log_dir, steps_context: str = "train") -> Iterator[torch.profiler.prof
             _settle()
 
 
-# The profiler drops a device event whose timestamp, moved onto the host's
-# clock, falls outside its window; on an H100 host that move was seen
-# landing a few ms early, and a span opened as the profiler started lost its
-# first step's first 36 kernels in 1 trace of 12 (none of 12 with this
-# margin; results/torch_r14_tp/trace_window.py). So the span opens, and the
-# profiler stops, SETTLE_S away from the window's edges.
+# On an H100 host the device trace can lose the first kernels it records:
+# a span opened as the profiler started lost its first 36 kernels in 1
+# trace of 12 (results/torch_r14_tp/trace_window.py), and spans opened
+# 50 ms and 250 ms after the start, the latter after one kernel, lost
+# their first 40 or so (ROADMAP Queue 3): a count, not a time. So
+# WARMUP_KERNELS small kernels run on the card before the span opens, and
+# the span opens, and the profiler stops, SETTLE_S away from the window's
+# edges (a device event's timestamp, moved onto the host's clock, was seen
+# landing a few ms early, and the profiler drops one outside its window).
 SETTLE_S = 0.05
+WARMUP_KERNELS = 512
 
 
 def _settle() -> None:

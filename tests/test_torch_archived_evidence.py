@@ -11,12 +11,17 @@ evaluations, the three 100-rollout scores and the walls. And the RIL run
 oracle and learned 48-rollout scores and the walls. And the online runs
 (``results/torch_r9_online/``): both recipes, the first and best
 evaluations against the JAX package's bars, the conservative penalty's
-flushes and the walls."""
+flushes and the walls. And the visual TACO-RL hierarchy
+(``results/torch_r15_visual/``): both recipes key by key against the
+archived ones, each stage's best ``val_accuracy``, the step graph's
+captures at each epoch end, the six scores against the JAX package's bars
+and the walls."""
 
 import json
 from pathlib import Path
 
 import pytest
+import yaml
 
 RUN = Path(__file__).resolve().parent.parent / "results" / "torch_r6_cql_state"
 CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
@@ -264,3 +269,116 @@ def test_the_online_readme_names_the_card_and_the_walls():
     assert all(f"{float(v):.1f}" in readme for v in walls.values())
     kept = json.loads((ONLINE / "cql_online_fake_kept_checkpoints.json").read_text())
     assert list(kept) == ["11750", "18500", "20000"]
+
+
+# -- the visual hierarchy (results/torch_r15_visual/, made by its run.sh run) -----------------
+
+VISUAL = RUN.parent / "torch_r15_visual"
+ARCHIVED = RUN.parent / "r5_train_to_success"
+# where a run's config.json may differ from the archived recipe: where the data and
+# the runs lived, and ``platform`` (a JAX backend, which the port ignores)
+PATHS = {"data_dir", "run_dir", "datamodule.data_dir", "callbacks.rollout.data_dir",
+         "callbacks.rollout.start_end_tasks"}
+VISUAL_DIFFERENCES = {
+    "lmp": PATHS | {"platform"},
+    "tacorl": PATHS | {"platform", "play_lmp_dir", "module.play_lmp_dir", "callbacks.rollout_lh.data_dir",
+                       "callbacks.rollout_lh.start_end_tasks"},
+}
+# (step, val_accuracy): the first best; the archive: 0.944 at 14,456 and at 5,312
+VISUAL_BEST = {"lmp": (12464, 1.0), "tacorl": (3320, 1.0)}
+VISUAL_LAST = {"lmp": 15008, "tacorl": 6000}  # K = 16 overshoots 15,000 by 8
+# the step graph's captures at each epoch end: again after each rollout that moved the weights
+VISUAL_CAPTURES = {
+    "lmp": [1, 2, 2, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 10, 10, 11, 11, 12, 12],
+    "tacorl": [1, 1, 2, 3, 4, 4, 5, 6, 7, 8],
+}
+VISUAL_SINGLE = {  # 40 spans a task; the archive: 0.975 / 0.938
+    "lmp": ({"turn_on_led": 0.875, "open_drawer": 1.0, "lift_block": 0.825, "move_slider_left": 0.925}, 0.90625),
+    "taco": ({"turn_on_led": 0.875, "open_drawer": 0.975, "lift_block": 0.9, "move_slider_left": 0.975}, 0.93125),
+}
+VISUAL_LH = {  # lh_1, lh_2[, lh_3], avg_len; the archive's lh_2: 0.383 / 0.617, sequential lh_3: 0.838 / 0.613
+    "lmp_lh2": (120, [0.9, 0.5833333333333334], 1.4833333333333334),
+    "taco_lh2": (120, [0.9833333333333333, 0.875], 1.8583333333333334),
+    "lmp_lhseq3": (80, [0.9125, 0.7, 0.35], 1.9625),
+    "taco_lhseq3": (80, [0.95, 0.525, 0.1375], 1.6125),
+}
+
+
+def _flat(tree, prefix=""):
+    if not isinstance(tree, dict):
+        return {prefix: tree}
+    out = {}
+    for k, v in tree.items():
+        out.update(_flat(v, f"{prefix}.{k}" if prefix else k))
+    return out
+
+
+def _visual_rows(stage):
+    return [json.loads(line) for line in (VISUAL / f"{stage}_metrics.jsonl").read_text().splitlines()]
+
+
+@pytest.mark.parametrize("stage", ["lmp", "tacorl"])
+def test_the_visual_runs_are_the_archived_recipe(stage):
+    want = _flat(yaml.safe_load((ARCHIVED / f"{stage}_config.yaml").read_text()))
+    got = _flat(json.loads((VISUAL / f"{stage}_config.json").read_text()))
+    assert {k for k in want.keys() | got.keys() if want.get(k) != got.get(k)} == VISUAL_DIFFERENCES[stage]
+    assert got["platform"] == "cpu" and "device" not in got  # the card, as every port entry point defaults
+    if stage == "tacorl":  # grafted from stage 1's latest step
+        assert got["module.play_lmp_dir"] == got["play_lmp_dir"] and got["module.lmp_epoch_to_load"] == -1
+
+
+@pytest.mark.parametrize("stage", ["lmp", "tacorl"])
+def test_visual_best_val_accuracy_and_its_step(stage):
+    rows = _visual_rows(stage)
+    curve = [(r["step"], r["val_accuracy"]) for r in rows if "val_accuracy" in r]
+    step, best = max(curve, key=lambda sa: sa[1])
+    assert (step, best) == VISUAL_BEST[stage], curve
+    assert best >= 0.8  # tests/test_train_to_success.py:79,117
+    assert rows[-1]["step"] == VISUAL_LAST[stage]
+
+
+@pytest.mark.parametrize("stage", ["lmp", "tacorl"])
+def test_the_step_graph_captures_again_after_the_rollouts(stage):
+    lines = (VISUAL / f"{stage}_captures.txt").read_text().splitlines()
+    captures = [int(line.split("captures ")[1].split()[0]) for line in lines]
+    replays = [int(line.split("replays ")[1]) for line in lines]
+    assert captures == VISUAL_CAPTURES[stage]
+    assert replays[-1] == VISUAL_LAST[stage]
+
+
+@pytest.mark.parametrize("stage", ["lmp", "taco"])
+def test_visual_single_task_scores_over_160_spans(stage):
+    per_task_want, overall_want = VISUAL_SINGLE[stage]
+    results = json.loads((VISUAL / f"{stage}_eval_best.json").read_text())
+    assert {t: v["accuracy"] for t, v in results.items()} == per_task_want
+    assert all(v["num_rollouts"] == 40 for v in results.values())
+    overall = sum(v["accuracy"] * v["num_rollouts"] for v in results.values()) / 160
+    assert overall == pytest.approx(overall_want, abs=1e-9)
+
+
+@pytest.mark.parametrize("name", list(VISUAL_LH))
+def test_visual_long_horizon_scores(name):
+    n, accs, avg_len = VISUAL_LH[name]
+    got = json.loads((VISUAL / f"{name}.json").read_text())
+    assert got["num_rollouts"] == n and got["tasks_per_rollout"] == len(accs)
+    assert [got[f"lh_{i + 1}_accuracy"] for i in range(len(accs))] == accs and got["avg_len"] == avg_len
+
+
+def test_the_visual_hierarchy_meets_the_jax_bars():
+    """tests/test_train_to_success.py:171-176 (depth 2) and :191-192
+    (sequential depth 3) on the port's runs."""
+    lmp, taco = (json.loads((VISUAL / f"{s}_lh2.json").read_text()) for s in ("lmp", "taco"))
+    assert taco["lh_1_accuracy"] >= 0.5 and taco["lh_2_accuracy"] >= 0.3
+    assert taco["lh_2_accuracy"] >= lmp["lh_2_accuracy"] + 0.1
+    seq = json.loads((VISUAL / "taco_lhseq3.json").read_text())
+    assert seq["lh_1_accuracy"] >= 0.3 and seq["avg_len"] >= 0.4
+
+
+def test_the_visual_readme_names_the_card_and_the_walls():
+    readme = (VISUAL / "README.md").read_text()
+    assert CARD in readme and (VISUAL / "card.txt").read_text().strip() == CARD
+    walls = dict(line.rsplit(" ", 1) for line in (VISUAL / "walls.txt").read_text().splitlines())
+    assert set(walls) == {"make_flagship_data", "train_lmp", "train_lmp ms_per_step_80_to_400", "train_tacorl",
+                          "train_tacorl ms_per_step_80_to_400", "eval_lmp_single", "eval_lmp_lh2",
+                          "eval_lmp_lhseq3", "eval_taco_single", "eval_taco_lh2", "eval_taco_lhseq3"}
+    assert all(v in readme for v in walls.values())
