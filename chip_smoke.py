@@ -4952,6 +4952,7 @@ def phase_train_tp(card: str, root: str) -> dict:
 
 HIER_K, HIER_EPOCHS, HIER_BATCHES = 8, 3, 16  # stage 2: 3 epochs of 16 batches of 32, 2 chunks each
 HIER_TRACED = (8, 16)  # kernel 1 counted in the device trace of the replays of steps 9-16
+HIER_NO_MOVE = 1  # after this epoch's firing the weights are put back where the graph reads them
 # results/torch_r15_visual/run.sh: stage 1 and stage 2 of the archived recipes
 HIER_LMP = ("experiment=play_lmp_fake", "seed=42", "datamodule.batch_size=32", "datamodule.val_percentage=0.2",
             "trainer.steps_per_call=16")
@@ -4963,7 +4964,10 @@ HIER_RL = ("experiment=tacorl_fake", "seed=42", "callbacks.rollout_lh.every_n_ep
 
 class _ReplayTrace(Callback):
     """torch.profiler over the chunks that end after ``start`` up to
-    ``stop``, and the wrapper's own launches over the same span."""
+    ``stop``, and the wrapper's own launches over the same span. The
+    profiler warms up and settles at the window's edges as
+    ``utils/profiling.py:trace`` does: its device trace can lose its first
+    kernel records (ROADMAP Queue 3)."""
 
     def __init__(self, start: int, stop: int):
         self.start, self.stop = start, stop
@@ -4972,8 +4976,10 @@ class _ReplayTrace(Callback):
     def on_train_batch_end(self, trainer, module, metrics, step):
         from torch.profiler import ProfilerActivity, profile
 
+        from tacorl_tpu_torch.utils.profiling import WARMUP_KERNELS, _settle
+
         if step == self.stop:
-            torch.cuda.synchronize()
+            _settle()
             self.prof.__exit__(None, None, None)
             self.eager_launches = jitter_normalize.launches - self.eager_launches
         if step == self.start:
@@ -4981,6 +4987,50 @@ class _ReplayTrace(Callback):
             self.eager_launches = jitter_normalize.launches
             self.prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
             self.prof.__enter__()
+            warm = torch.zeros(1, device="cuda")
+            for _ in range(WARMUP_KERNELS):
+                warm.add_(1)
+            _settle()
+
+
+class _NoMoveFiring(Callback):
+    """After the firings of epoch ``epoch``, puts every parameter and buffer
+    of the net that a rollout agent's ``flatten_parameters()`` moved back
+    into the storage it held when that epoch's last chunk trained, with its
+    values: the path of the full stage-2 run's epochs 0 and 4, where
+    ``rollout``'s agent moved the RNN weights and ``rollout_lh``'s moved
+    them back (results/torch_r16_stage2_hold/). The graph then replays
+    across a firing after which no parameter moved. Runs after the rollout
+    callbacks (``train.main`` appends it); the eager twin runs it too, so
+    both runs move the same values through the same storage."""
+
+    def __init__(self, epoch: int):
+        self.epoch, self.kept, self.moved = epoch, [], None
+
+    @staticmethod
+    def _tensors(trainer):
+        net = trainer.state.net
+        return list(net.parameters()) + list(net.buffers())
+
+    def on_train_batch_end(self, trainer, module, metrics, step):
+        self.kept = [t.data for t in self._tensors(trainer)]  # holds the storage the graph reads
+
+    @torch.no_grad()
+    def on_validation_end(self, trainer, module, metrics, outputs, epoch):
+        if epoch != self.epoch:
+            return
+        tensors = self._tensors(trainer)
+        self.moved = sum(t.data_ptr() != k.data_ptr() for t, k in zip(tensors, self.kept))
+        for t, k in zip(tensors, self.kept):
+            if t.data_ptr() != k.data_ptr():
+                k.copy_(t.data)
+                t.data = k
+        graph = trainer.step_graph
+        if graph is not None:
+            from tacorl_tpu_torch.core.graphs import _addresses
+
+            _check(_addresses(trainer.state) == graph.addresses,
+                   f"train_hierarchy: the weights are not back at the capture's addresses after epoch {epoch}")
 
 
 def _hierarchy_data(root: str) -> tuple:
@@ -5008,7 +5058,9 @@ def phase_train_hierarchy(card: str, root: str) -> dict:
     then CQL), ``rollout`` firing after every epoch and ``rollout_lh``
     after the first, against the eager run with capturable Adam: every row
     within rtol 1e-4, the weights within atol 2.5 lr a step; the step
-    graph's captures; kernel 1 twice a replayed step in the device trace
+    graph's captures, and a replay across a firing after which no parameter
+    moved (``_NoMoveFiring`` after epoch 1, so the CQL epoch 2 replays the
+    graph captured before it); kernel 1 twice a replayed step in the device trace
     of steps 9-16, and against its plain version on the graphed run's own
     frames. Returns kernel 1's launches and its error."""
     from tacorl_tpu_torch import train
@@ -5024,15 +5076,15 @@ def phase_train_hierarchy(card: str, root: str) -> dict:
               f"trainer.log_every_n_steps={HIER_K}", "callbacks.rollout.num_rollouts_per_task=1",
               "callbacks.rollout_lh.num_rollouts=2"]
     t1 = time.perf_counter()
-    eager = train.main(common + [f"run_dir={root}/eager"], callbacks=[_Capturable()])
+    eager = train.main(common + [f"run_dir={root}/eager"], callbacks=[_Capturable(), _NoMoveFiring(HIER_NO_MOVE)])
     eager_s, eager_params = time.perf_counter() - t1, _params(eager)
     del eager
     torch.cuda.empty_cache()
-    probe = _ReplayTrace(*HIER_TRACED)
+    probe, no_move = _ReplayTrace(*HIER_TRACED), _NoMoveFiring(HIER_NO_MOVE)
     t1 = time.perf_counter()
     with _logged() as lines:
         graphed = train.main(common + [f"run_dir={root}/graphed", f"trainer.steps_per_call={HIER_K}"],
-                             callbacks=[probe])
+                             callbacks=[probe, no_move])
     graphed_s = time.perf_counter() - t1
     tag, graph = "train_hierarchy", graphed.step_graph
     steps = HIER_EPOCHS * HIER_BATCHES
@@ -5049,6 +5101,9 @@ def phase_train_hierarchy(card: str, root: str) -> dict:
     captures = [int(re.search(r"captures (\d+)", m).group(1)) for m in epoch_lines]
     _check(len(captures) == HIER_EPOCHS and captures[0] == 1 and captures[-1] == graph.captures
            and captures == sorted(captures), f"{tag}: captures at the epoch ends {captures}, {graph.captures} in all")
+    # the CQL epoch after HIER_NO_MOVE's firing replayed the graph captured before it
+    _check(no_move.moved is not None and captures[HIER_NO_MOVE + 1] == captures[HIER_NO_MOVE],
+           f"{tag}: epoch {HIER_NO_MOVE + 1} captured again across the firing that moved nothing: {captures}")
     want_lh = [{k: v for k, v in r.items() if k != "time"} for r in _metrics_rows(f"{root}/eager") if "LH_2_accuracy" in r]
     _check([{k: v for k, v in r.items() if k != "time"} for r in rows if "LH_2_accuracy" in r] == want_lh,
            f"{tag}: rollout_lh rows differ from the eager run's: {want_lh}")
@@ -5062,7 +5117,9 @@ def phase_train_hierarchy(card: str, root: str) -> dict:
           f"({HIER_EPOCHS} epochs of {HIER_BATCHES} batches of 32, bc_epochs 2), rollout after every epoch "
           f"(val_accuracy {evals}), rollout_lh after epoch 0 | against the eager run with capturable Adam: {held} "
           f"rows within rtol 1e-4 (largest {worst:.3g}), weights at step {steps} within {param_err:.3g} (atol "
-          f"{2.5 * lr * steps:.3g}) | step graph captures at the epoch ends {captures}, {graph.replays} replays | "
+          f"{2.5 * lr * steps:.3g}) | step graph captures at the epoch ends {captures}, {graph.replays} replays; "
+          f"after epoch {HIER_NO_MOVE}'s firing {no_move.moved} tensors put back at the capture's addresses, and "
+          f"epoch {HIER_NO_MOVE + 1} (CQL) replayed across it | "
           f"train/action_loss {loss} | jitter_normalize {traced} launches in the device trace of the replays of "
           f"steps {HIER_TRACED[0] + 1}-{HIER_TRACED[1]} (2 a step; the wrapper counted {probe.eager_launches} there), "
           f"vs plain on the graphed run's frames max abs err {err:.3g} (atol {BF16_ATOL}) | train.main eager "

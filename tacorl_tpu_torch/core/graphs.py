@@ -23,7 +23,12 @@ other draws or other scalar names captures again; it never runs eagerly.
 So do parameters or buffers that moved since the capture: the graph holds
 their addresses, and an eager step between replays can move them (a
 validation pass made cuDNN repack a biRNN's weights into a new buffer, and
-the replays after it trained memory the net no longer read).
+the replays after it trained memory the net no longer read). Two rollout
+agents in a row can move an RNN's weights and move them back (each
+``flatten_parameters()`` repacks them into a new buffer, and the allocator
+can hand the first one back): the addresses are then the capture's, and
+the replay trains what a new capture would, bit for bit
+(results/torch_r16_stage2_hold/).
 Any failure of the warm-up, the capture or a replay raises, naming the
 module and what failed.
 

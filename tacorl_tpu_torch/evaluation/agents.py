@@ -80,7 +80,9 @@ class _ModuleAgent:
         self.net = state.net
         self.net.eval()
         # a deep-copied or moved nn.RNN holds its weights apart; cuDNN would
-        # copy them into one buffer on every step
+        # copy them into one buffer on every step. Each call repacks the
+        # weights into a new buffer, which a graphed train step follows
+        # (core/graphs.py: StepGraph compares the addresses)
         for m in self.net.modules():
             if isinstance(m, nn.RNNBase):
                 m.flatten_parameters()
