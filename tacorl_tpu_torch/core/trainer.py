@@ -17,6 +17,10 @@ What the JAX trainer does, the port does the same way:
     stream ``prefetch_to_device`` batches ahead;
   * the step's metrics stay on the device; a logging step copies them to
     the host in one batch, so only logging steps wait for the device;
+  * the loader's own spans (``utils/profiling.RECORDER``) are kept while a
+    ``torch.profiler`` session runs: each step and each epoch's end call
+    ``follow_profiler``, so a profile of ``fit`` holds the loader threads'
+    phases beside the ``trainer/*`` ranges;
   * ``validate`` (``limit_val_batches``) after every ``val_every_n_epochs``
     epochs, a checkpoint after every ``ckpt_every_n_epochs`` and at the stop,
     callback state beside the checkpoints keyed by class name (the legacy
@@ -90,6 +94,7 @@ from tacorl_tpu_torch.parallel.mesh import (
     sync_metrics,
 )
 from tacorl_tpu_torch.utils import resolve_device
+from tacorl_tpu_torch.utils.profiling import follow_profiler
 
 logger = logging.getLogger("tacorl_tpu_torch")
 
@@ -261,6 +266,7 @@ class Trainer:
             chunks = _chunks(host_batches, self.steps_per_call) if use_scan else host_batches
             batches = device_prefetch(chunks, put, self.prefetch_to_device)
             while True:
+                follow_profiler()
                 t0 = time.perf_counter()
                 with record_function("trainer/next_batch"):
                     batch = next(batches, None)
@@ -293,6 +299,7 @@ class Trainer:
                     break
             batches.close()
             host_batches.close()  # a stop mid-epoch cancels the loader's queued batches
+            follow_profiler()
             graph = self.step_graph
             logger.info(
                 "epoch %d: %d steps in %.1fs%s", epoch, n_batches, time.time() - t_epoch,

@@ -24,6 +24,15 @@ memory while the consumer's kernels may still read it. On the CPU it is
 trainer's K-step dispatch) is put as one batch whose leaves are stacked
 (K, B, ...): on a card each batch is copied into its slice of the stacked
 device tensor, so nothing is stacked on the host.
+
+Spans (``utils/profiling.spans``, kept while the recorder is on), each
+carrying its batch's ``epoch`` and ``batch`` index: ``loader/produce`` on a
+pool thread around a batch's making, with ``loader/pin`` inside it (and
+the dataset's ``loader/draws``, ``loader/gather``, ``loader/pad``); on the
+consumer's thread ``loader/wait`` around the wait for each handed-out
+batch, with the counter ``loader/ready`` (how many queued batches were
+done at the hand-out), and ``loader/put`` around ``DevicePut``'s enqueue
+(``first`` and ``last`` batch of the chunk).
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 
 from tacorl_tpu_torch.parallel.mesh import BatchShard
 from tacorl_tpu_torch.utils import resolve_device
+from tacorl_tpu_torch.utils.profiling import RECORDER, count, last_ids, spans
 
 __all__ = ["collate", "DataLoader", "device_prefetch", "DevicePut", "tree_map"]
 
@@ -143,18 +153,22 @@ class DataLoader:
         pin, shard = self.pin_memory, self.shard
 
         def produce(batch_idx: int, indices: np.ndarray) -> Dict:
-            rows = shard.rows(len(indices))
-            # packed-storage datasets expose a native batched gather
-            if getattr(self.dataset, "supports_batch", lambda: False)():
-                rng = np.random.default_rng((self.seed, epoch, batch_idx))
-                batch = self.dataset.sample_batch(indices, rng, rows)
-            else:
-                items = []
-                for idx in indices[rows]:
-                    rng = np.random.default_rng((self.seed, epoch, batch_idx, int(idx)))
-                    items.append(self.dataset.sample(int(idx), rng))
-                batch = collate(items)
-            return tree_map(_pinned, batch) if pin else batch
+            with spans("loader/produce", epoch=epoch, batch=batch_idx):
+                rows = shard.rows(len(indices))
+                # packed-storage datasets expose a native batched gather
+                if getattr(self.dataset, "supports_batch", lambda: False)():
+                    rng = np.random.default_rng((self.seed, epoch, batch_idx))
+                    batch = self.dataset.sample_batch(indices, rng, rows)
+                else:
+                    items = []
+                    for idx in indices[rows]:
+                        rng = np.random.default_rng((self.seed, epoch, batch_idx, int(idx)))
+                        items.append(self.dataset.sample(int(idx), rng))
+                    batch = collate(items)
+                if pin:
+                    with spans("loader/pin"):
+                        batch = tree_map(_pinned, batch)
+                return batch
 
         if self.prefetch <= 0:
             for bi, b in enumerate(batches):
@@ -166,7 +180,7 @@ class DataLoader:
             # basic_data_module.py:132-158); threads suffice because the
             # gathers, npz decodes and pinning copies release the GIL, and
             # the per-batch RNG keys make the values independent of the pool
-            yield from self._iter_pooled(batches, produce)
+            yield from self._iter_pooled(batches, produce, epoch)
             return
 
         q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
@@ -196,11 +210,12 @@ class DataLoader:
         finally:
             stop.set()
 
-    def _iter_pooled(self, batches, produce) -> Iterator[Dict]:
+    def _iter_pooled(self, batches, produce, epoch: int) -> Iterator[Dict]:
         window = self.prefetch + self.num_threads
         pool = ThreadPoolExecutor(max_workers=self.num_threads)
+        # (batch index, future) of each submitted batch not yet handed out
+        pending: "collections.deque" = collections.deque()
         try:
-            pending: "collections.deque" = collections.deque()
             it = iter(enumerate(batches))
             exhausted = False
             while True:
@@ -210,14 +225,26 @@ class DataLoader:
                     except StopIteration:
                         exhausted = True
                         break
-                    pending.append(pool.submit(produce, bi, b))
+                    pending.append((bi, pool.submit(produce, bi, b)))
                 if not pending:
                     return
-                yield pending.popleft().result()
+                bi = pending[0][0]
+                if RECORDER.on:
+                    count("loader/ready", sum(f.done() for _, f in pending), epoch=epoch, batch=bi)
+                with spans("loader/wait", epoch=epoch, batch=bi):
+                    pending[0][1].result()
+                # no local keeps the batch (or its future) while the consumer has it
+                yield pending.popleft()[1].result()
         finally:
-            # the consumer may abandon the iterator early: do not block on
-            # the queued produce() calls
-            pool.shutdown(wait=False, cancel_futures=True)
+            # the consumer may abandon the iterator early: cancel the queued
+            # produce() calls and do not block on the running ones. Only the
+            # futures' and the pool's own state is touched, so this also
+            # holds when the iterator is closed at interpreter exit, after
+            # the modules' globals were cleared (pool.shutdown's
+            # cancel_futures reads concurrent.futures' module globals)
+            for _, future in pending:
+                future.cancel()
+            pool.shutdown(wait=False)
 
 
 class _OnDevice:
@@ -241,20 +268,18 @@ class DevicePut:
     def __call__(self, batch: Any) -> Any:
         if isinstance(batch, list):
             return self._put_chunk(batch)
-        if self.stream is None:
-            return tree_map(torch.as_tensor, batch)
-        with torch.cuda.stream(self.stream):
-            tree = tree_map(
-                lambda x: torch.as_tensor(x).to(self.device, non_blocking=True), batch
-            )
-            event = torch.cuda.Event()
-            event.record(self.stream)
-        return _OnDevice(tree, event)
+        with spans("loader/put", **_chunk_ids(1)):
+            if self.stream is None:
+                return tree_map(torch.as_tensor, batch)
+            with torch.cuda.stream(self.stream):
+                tree = tree_map(
+                    lambda x: torch.as_tensor(x).to(self.device, non_blocking=True), batch
+                )
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            return _OnDevice(tree, event)
 
     def _put_chunk(self, batches: list) -> Any:
-        if self.stream is None:
-            return _stack(lambda xs: torch.stack([torch.as_tensor(x) for x in xs]), batches)
-
         def put(xs):
             first = torch.as_tensor(xs[0])
             out = torch.empty((len(xs),) + tuple(first.shape), dtype=first.dtype, device=self.device)
@@ -262,11 +287,14 @@ class DevicePut:
                 out[i].copy_(torch.as_tensor(x), non_blocking=True)
             return out
 
-        with torch.cuda.stream(self.stream):
-            tree = _stack(put, batches)
-            event = torch.cuda.Event()
-            event.record(self.stream)
-        return _OnDevice(tree, event)
+        with spans("loader/put", **_chunk_ids(len(batches))):
+            if self.stream is None:
+                return _stack(lambda xs: torch.stack([torch.as_tensor(x) for x in xs]), batches)
+            with torch.cuda.stream(self.stream):
+                tree = _stack(put, batches)
+                event = torch.cuda.Event()
+                event.record(self.stream)
+            return _OnDevice(tree, event)
 
     def ready(self, put: Any) -> Any:
         """The batch, usable on the current stream."""
@@ -276,6 +304,19 @@ class DevicePut:
         stream.wait_event(put.event)
         tree_map(lambda t: t.record_stream(stream), put.tree)
         return put.tree
+
+
+def _chunk_ids(n: int) -> Dict[str, int]:
+    """The ids of the ``n`` batches this thread was handed last (a chunk
+    never spans two epochs): its last ``loader/wait``'s epoch, and the
+    chunk's first and last batch index; {} when the recorder is off or no
+    batch was handed out through a pooled loader."""
+    if not RECORDER.on:
+        return {}
+    ids = last_ids("loader/wait")
+    if not ids:
+        return {}
+    return {"epoch": ids["epoch"], "first": ids["batch"] - n + 1, "last": ids["batch"]}
 
 
 def device_prefetch(iterator: Iterator, put_fn: Callable[[Any], Any], depth: int = 1):

@@ -28,6 +28,7 @@ import numpy as np
 
 from tacorl_tpu_torch.data.knn import load_or_build_nn_index
 from tacorl_tpu_torch.data.storage import PackedStorage, load_ep_start_end_ids, open_storage
+from tacorl_tpu_torch.utils.profiling import spans
 
 __all__ = ["PlayWindowDataset", "validation_window_size"]
 
@@ -260,13 +261,14 @@ class PlayWindowDataset:
         draws are made, in the order of the whole batch, and only the kept
         rows are read, so they equal those rows of the whole batch."""
         indices = np.asarray(indices, dtype=np.int64)
-        window_sizes = np.asarray(
-            [self._window_size(int(i), rng) for i in indices], dtype=np.int64
-        )
-        starts = self.episode_lookup[indices]
-        if self.include_goal:
-            goal_steps, disps = self._goal_steps(starts, window_sizes, rng)
-            goal_steps, disps = goal_steps[rows], disps[rows]
+        with spans("loader/draws"):
+            window_sizes = np.asarray(
+                [self._window_size(int(i), rng) for i in indices], dtype=np.int64
+            )
+            starts = self.episode_lookup[indices]
+            if self.include_goal:
+                goal_steps, disps = self._goal_steps(starts, window_sizes, rng)
+                goal_steps, disps = goal_steps[rows], disps[rows]
         indices, window_sizes, starts = indices[rows], window_sizes[rows], starts[rows]
         b = len(indices)
         keys = list(self.modalities)
@@ -274,22 +276,30 @@ class PlayWindowDataset:
             for k in STATE_INFO_KEYS:
                 if k not in keys:
                     keys.append(k)
-        data = self.storage.read_window_batch(
-            starts, self.max_window_size, keys
-        )
+        # both reads in one span: the goal frames are read before the pad
+        # fix-up, which touches only the windows
+        with spans("loader/gather"):
+            data = self.storage.read_window_batch(
+                starts, self.max_window_size, keys
+            )
+            if self.include_goal:
+                goals = self.storage.read_frame_batch(
+                    goal_steps, self._state_keys()
+                )
         # per-item pad fix-up (sampled rows beyond ws are real future frames
         # and must be replaced by the padding semantics)
-        if self.pad:
-            for i in range(b):
-                ws = int(window_sizes[i])
-                if ws == self.max_window_size:
-                    continue
-                for m in keys:
-                    if "rel" in m:
-                        data[m][i, ws:, :-1] = 0
-                        data[m][i, ws:, -1:] = data[m][i, ws - 1, -1:]
-                    else:
-                        data[m][i, ws:] = data[m][i, ws - 1]
+        with spans("loader/pad"):
+            if self.pad:
+                for i in range(b):
+                    ws = int(window_sizes[i])
+                    if ws == self.max_window_size:
+                        continue
+                    for m in keys:
+                        if "rel" in m:
+                            data[m][i, ws:, :-1] = 0
+                            data[m][i, ws:, -1:] = data[m][i, ws - 1, -1:]
+                        else:
+                            data[m][i, ws:] = data[m][i, ws - 1]
         batch = {
             "states": {
                 m: data[m] for m in self.modalities if "action" not in m
@@ -301,9 +311,7 @@ class PlayWindowDataset:
         if not self.real_world:
             batch["state_info"] = {k: data[k] for k in STATE_INFO_KEYS}
         if self.include_goal:
-            batch["goal"] = self.storage.read_frame_batch(
-                goal_steps, self._state_keys()
-            )
+            batch["goal"] = goals
             batch["disp"] = disps
         return batch
 
