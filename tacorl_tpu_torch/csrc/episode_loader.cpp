@@ -1,22 +1,30 @@
-// Native batched episode-window gather (a copy of csrc/episode_loader.cpp,
-// built for the port by tacorl_tpu_torch/data/native.py).
+// Native batched episode-window gather and pad fill for the port's loader,
+// built by tacorl_tpu_torch/data/native.py.
 //
 // Packed storage (tacorl_tpu_torch/data/storage.py PackedStorage) keeps each
 // modality in one contiguous memmap ordered by step; this library turns a
 // training batch of B sliding windows into B parallel memcpy streams from the
-// mapped file into one contiguous batch buffer, overlapping page faults
-// across a thread pool.
+// mapped file into one contiguous batch buffer given by the caller (on a card
+// the page-locked tensor the copy to the device reads), overlapping page
+// faults across a thread pool. The pad fill then completes each window's rows
+// past its real length in that same buffer.
 //
 // C ABI (ctypes):
-//   gather_windows(src, row_bytes, rows, n_windows, window_rows, pad_rows,
-//                  out)
+//   gather_windows(src, row_bytes, rows, lengths, n_windows, out_rows, out)
 //     src        : base pointer of the memmapped (n_steps, ...) array
 //     row_bytes  : bytes per step-row
 //     rows       : int64[n_windows] starting row per window
-//     window_rows: rows to copy per window
-//     pad_rows   : extra rows appended by repeating the window's last row
-//                  (the play-window padding semantics)
-//     out        : (n_windows, window_rows + pad_rows, row_bytes) buffer
+//     lengths    : int64[n_windows] rows to copy per window (its real rows);
+//                  rows lengths[w] .. out_rows - 1 of window w are not written
+//     out        : (n_windows, out_rows, row_bytes) buffer
+//
+//   pad_windows(out, row_bytes, lengths, n_windows, out_rows, keep_bytes)
+//     writes rows lengths[w] .. out_rows - 1 of each window of out in place
+//     (lengths[w] >= 1): each such row's first row_bytes - keep_bytes bytes
+//     are zeroed and its last keep_bytes bytes repeat those of row
+//     lengths[w] - 1. keep_bytes == row_bytes repeats the last real row (the
+//     play-window padding of frames and states); the size of one element
+//     keeps only the last (relative actions: zeros but the gripper channel).
 //
 //   gather_rows(src, row_bytes, rows, n_rows, out)
 //     single-frame gather (goal images, transitions).
@@ -66,20 +74,30 @@ void parallel_for(int64_t n, Fn&& fn, int max_threads) {
 extern "C" {
 
 void gather_windows(const uint8_t* src, int64_t row_bytes, const int64_t* rows,
-                    int64_t n_windows, int64_t window_rows, int64_t pad_rows,
-                    uint8_t* out) {
-  const int64_t out_rows = window_rows + pad_rows;
+                    const int64_t* lengths, int64_t n_windows,
+                    int64_t out_rows, uint8_t* out) {
   parallel_for(
       n_windows,
       [&](int64_t w) {
-        uint8_t* dst = out + w * out_rows * row_bytes;
-        const uint8_t* s = src + rows[w] * row_bytes;
-        std::memcpy(dst, s, static_cast<size_t>(window_rows * row_bytes));
-        if (pad_rows > 0) {
-          const uint8_t* last = dst + (window_rows - 1) * row_bytes;
-          uint8_t* p = dst + window_rows * row_bytes;
-          for (int64_t r = 0; r < pad_rows; ++r, p += row_bytes)
-            std::memcpy(p, last, static_cast<size_t>(row_bytes));
+        std::memcpy(out + w * out_rows * row_bytes, src + rows[w] * row_bytes,
+                    static_cast<size_t>(lengths[w] * row_bytes));
+      },
+      hardware_threads());
+}
+
+void pad_windows(uint8_t* out, int64_t row_bytes, const int64_t* lengths,
+                 int64_t n_windows, int64_t out_rows, int64_t keep_bytes) {
+  const int64_t zero_bytes = row_bytes - keep_bytes;
+  parallel_for(
+      n_windows,
+      [&](int64_t w) {
+        uint8_t* window = out + w * out_rows * row_bytes;
+        const uint8_t* last = window + (lengths[w] - 1) * row_bytes;
+        for (int64_t r = lengths[w]; r < out_rows; ++r) {
+          uint8_t* p = window + r * row_bytes;
+          std::memset(p, 0, static_cast<size_t>(zero_bytes));
+          std::memcpy(p + zero_bytes, last + zero_bytes,
+                      static_cast<size_t>(keep_bytes));
         }
       },
       hardware_threads());

@@ -9,8 +9,13 @@ bit-equal to the JAX package's and independent of the thread count. With
 batch is that rank's rows of the global batch of ``batch_size`` rows,
 equal to those rows of the one-process batch: the index order and the
 per-batch keys are the global batch's, and a rank reads only its rows.
-With ``pin_memory`` set, the loader's threads copy each finished batch into
-page-locked torch tensors, so the training thread never pins.
+With ``pin_memory`` set, the training thread never pins: a dataset with a
+batched path (``sample_batch``, packed storage) assembles each batch in
+place in page-locked tensors from torch's caching host allocator, and the
+loader's threads copy what is left (every leaf of any other dataset) into
+such tensors. ``DevicePut`` copies from those very tensors, so each copy
+records its event with the allocator, which hands a block to a later batch
+only once the copies that read it have run.
 
 ``device_prefetch`` keeps ``depth`` batches in flight: ``put_fn`` runs on the
 next host batch while the current one computes. ``DevicePut`` is the
@@ -32,7 +37,9 @@ the dataset's ``loader/draws``, ``loader/gather``, ``loader/pad``); on the
 consumer's thread ``loader/wait`` around the wait for each handed-out
 batch, with the counter ``loader/ready`` (how many queued batches were
 done at the hand-out), and ``loader/put`` around ``DevicePut``'s enqueue
-(``first`` and ``last`` batch of the chunk).
+(``first`` and ``last`` batch of the chunk). The counter ``loader/in_place``
+(pool thread, one a batch) is the share of the batch's bytes that were
+written straight into page-locked memory.
 """
 
 from __future__ import annotations
@@ -94,10 +101,35 @@ def collate(items: Sequence[Dict]) -> Dict:
     return np.stack(items)
 
 
-def _pinned(x: np.ndarray) -> torch.Tensor:
-    """A page-locked copy of ``x`` (the copy runs without the GIL)."""
-    src = torch.from_numpy(x)
-    return torch.empty_like(src, pin_memory=True).copy_(src)
+def _page_locked(x: Any) -> bool:
+    return isinstance(x, torch.Tensor) and x.is_pinned()
+
+
+def _torch_dtype(dtype: Union[np.dtype, torch.dtype]) -> torch.dtype:
+    return dtype if isinstance(dtype, torch.dtype) else torch.from_numpy(np.empty(0, dtype)).dtype
+
+
+def _pinned_empty(shape: Tuple[int, ...], dtype: Union[np.dtype, torch.dtype]) -> torch.Tensor:
+    """A page-locked tensor of ``shape`` and ``dtype`` (numpy's or torch's),
+    from torch's caching host allocator: a block recycled once the copies
+    that read its last tenant have run."""
+    return torch.empty(shape, dtype=_torch_dtype(dtype), pin_memory=True)
+
+
+def _pinned(x: Any) -> torch.Tensor:
+    """``x`` itself when it is a page-locked tensor, else a page-locked copy
+    of it (the copy runs without the GIL)."""
+    if _page_locked(x):
+        return x
+    src = torch.as_tensor(x)
+    return _pinned_empty(tuple(src.shape), src.dtype).copy_(src)
+
+
+def _in_place_share(batch: Any) -> float:
+    """The share of the batch's bytes in page-locked tensors."""
+    leaves = [x for _, x in flatten(batch)]
+    total = sum(x.nbytes for x in leaves)
+    return sum(x.nbytes for x in leaves if _page_locked(x)) / total if total else 0.0
 
 
 class DataLoader:
@@ -158,13 +190,16 @@ class DataLoader:
                 # packed-storage datasets expose a native batched gather
                 if getattr(self.dataset, "supports_batch", lambda: False)():
                     rng = np.random.default_rng((self.seed, epoch, batch_idx))
-                    batch = self.dataset.sample_batch(indices, rng, rows)
+                    # on a card the batch is assembled in page-locked memory
+                    batch = self.dataset.sample_batch(indices, rng, rows, alloc=_pinned_empty if pin else np.empty)
                 else:
                     items = []
                     for idx in indices[rows]:
                         rng = np.random.default_rng((self.seed, epoch, batch_idx, int(idx)))
                         items.append(self.dataset.sample(int(idx), rng))
                     batch = collate(items)
+                if RECORDER.on:
+                    count("loader/in_place", _in_place_share(batch), epoch=epoch, batch=batch_idx)
                 if pin:
                     with spans("loader/pin"):
                         batch = tree_map(_pinned, batch)

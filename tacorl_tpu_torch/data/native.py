@@ -7,6 +7,12 @@ and the flags, so an edit rebuilds it) and loaded once per process. A
 missing compiler or a failed build raises: unlike the JAX package, the port
 has no numpy fallback for packed storage (a frame-dir dataset never reaches
 this module).
+
+Each gather writes into a new numpy array, or into a caller's ``out``: a
+C-contiguous numpy array or CPU tensor of the gather's shape and dtype (the
+loader's page-locked tensors on a card), checked here before the native
+code gets its address. ``pad_windows`` completes a window batch's rows past
+each window's real length in place.
 """
 
 from __future__ import annotations
@@ -17,16 +23,22 @@ import os
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Sequence
+from typing import TYPE_CHECKING, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
-__all__ = ["get_native_lib", "gather_windows", "gather_rows", "library_path"]
+if TYPE_CHECKING:
+    import torch
+
+__all__ = ["get_native_lib", "gather_windows", "gather_rows", "pad_windows", "library_path"]
 
 SRC = Path(__file__).resolve().parents[1] / "csrc" / "episode_loader.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
 CXX = "g++"
 CXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-pthread", "-std=c++17")
+
+# a destination the native code writes: a numpy array or a CPU tensor
+Buffer = Union[np.ndarray, "torch.Tensor"]
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -67,8 +79,10 @@ def get_native_lib() -> ctypes.CDLL:
         i64 = ctypes.c_int64
         p_u8 = ctypes.c_void_p
         p_i64 = ctypes.POINTER(ctypes.c_int64)
-        lib.gather_windows.argtypes = [p_u8, i64, p_i64, i64, i64, i64, p_u8]
+        lib.gather_windows.argtypes = [p_u8, i64, p_i64, p_i64, i64, i64, p_u8]
         lib.gather_windows.restype = None
+        lib.pad_windows.argtypes = [p_u8, i64, p_i64, i64, i64, i64]
+        lib.pad_windows.restype = None
         lib.gather_rows.argtypes = [p_u8, i64, p_i64, i64, p_u8]
         lib.gather_rows.restype = None
         _lib = lib
@@ -86,8 +100,42 @@ def _rows(array: np.ndarray, rows: Sequence[int], span: int) -> np.ndarray:
     return rows
 
 
+def _lengths(lengths: Sequence[int], n: int, most: int) -> np.ndarray:
+    """``lengths`` as contiguous int64, checked to be ``n`` counts in [1, most]."""
+    lengths = np.ascontiguousarray(lengths, dtype=np.int64)
+    if lengths.shape != (n,):
+        raise ValueError(f"lengths of shape {lengths.shape}, not ({n},)")
+    if n and (lengths.min() < 1 or lengths.max() > most):
+        raise ValueError(f"lengths outside [1, {most}]")
+    return lengths
+
+
 def _row_bytes(array: np.ndarray) -> int:
     return int(np.prod(array.shape[1:], dtype=np.int64)) * array.itemsize
+
+
+def _view(buf: Buffer) -> np.ndarray:
+    """``buf`` as numpy sees it (a CPU tensor's memory, not a copy),
+    checked C-contiguous and writable: the native code writes it."""
+    view = buf if isinstance(buf, np.ndarray) else buf.numpy()
+    if not (view.flags.c_contiguous and view.flags.writeable):
+        raise ValueError("the native loader writes only a C-contiguous, writable buffer")
+    return view
+
+
+def _out(out: Optional[Buffer], shape: Tuple[int, ...], dtype: np.dtype) -> Tuple[Buffer, int]:
+    """``out`` checked to hold ``shape`` of ``dtype`` (a new array when
+    None), and its address."""
+    if out is None:
+        out = np.empty(shape, dtype=dtype)
+    view = _view(out)
+    if view.shape != shape or view.dtype != dtype:
+        raise ValueError(f"out is {view.dtype} {view.shape}, the gather writes {np.dtype(dtype)} {shape}")
+    return out, view.ctypes.data
+
+
+def _p_i64(a: np.ndarray):
+    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_int64))
 
 
 def gather_windows(
@@ -95,25 +143,50 @@ def gather_windows(
     start_rows: Sequence[int],
     window_rows: int,
     pad_rows: int = 0,
-) -> np.ndarray:
-    """(B windows) x (window + pad rows) gather from a (n_steps, ...) array;
-    padding repeats each window's last row."""
+    out: Optional[Buffer] = None,
+    lengths: Optional[Sequence[int]] = None,
+) -> Buffer:
+    """(B windows) x (window + pad rows) gather from a (n_steps, ...) array
+    into ``out`` (a new array when None; else a C-contiguous numpy array or
+    CPU tensor of that shape and dtype, returned). Window w's first
+    ``lengths[w]`` rows (all ``window_rows`` by default) are copied; with
+    ``pad_rows`` the rows after them repeat the last copied row, without
+    they are left for ``pad_windows``."""
     rows = _rows(array, start_rows, window_rows)
-    out = np.empty((len(rows), window_rows + pad_rows) + array.shape[1:], dtype=array.dtype)
+    if lengths is None:
+        lengths = np.full(len(rows), window_rows, dtype=np.int64)
+    lengths = _lengths(lengths, len(rows), window_rows)
+    out, address = _out(out, (len(rows), window_rows + pad_rows) + array.shape[1:], array.dtype)
     get_native_lib().gather_windows(
-        array.ctypes.data_as(ctypes.c_void_p), _row_bytes(array),
-        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(rows),
-        window_rows, pad_rows, out.ctypes.data_as(ctypes.c_void_p),
+        array.ctypes.data_as(ctypes.c_void_p), _row_bytes(array), _p_i64(rows), _p_i64(lengths),
+        len(rows), window_rows + pad_rows, address,
     )
+    if pad_rows:
+        pad_windows(out, lengths)
     return out
 
 
-def gather_rows(array: np.ndarray, rows: Sequence[int]) -> np.ndarray:
+def pad_windows(out: Buffer, lengths: Sequence[int], relative: bool = False) -> None:
+    """Fill rows ``lengths[w]:`` of each window of a (B, rows, ...) ``out``
+    in place from its last real row ``lengths[w] - 1``: repeated whole
+    (frames, states) or, ``relative``, zeroed but for the last entry of the
+    row's first axis, repeated (a relative action's gripper channel)."""
+    if out.ndim < 2 or (relative and out.ndim < 3):
+        raise ValueError(f"pad_windows needs (windows, rows{', channels' if relative else ''}, ...), "
+                         f"not {tuple(out.shape)}")
+    view = _view(out)
+    lengths = _lengths(lengths, view.shape[0], view.shape[1])
+    row_bytes = int(np.prod(view.shape[2:], dtype=np.int64)) * view.itemsize
+    keep_bytes = row_bytes // view.shape[2] if relative else row_bytes
+    get_native_lib().pad_windows(view.ctypes.data, row_bytes, _p_i64(lengths), view.shape[0], view.shape[1], keep_bytes)
+
+
+def gather_rows(array: np.ndarray, rows: Sequence[int], out: Optional[Buffer] = None) -> Buffer:
+    """(B rows) gather from a (n_steps, ...) array into ``out`` (as
+    ``gather_windows``)."""
     rows = _rows(array, rows, 1)
-    out = np.empty((len(rows),) + array.shape[1:], dtype=array.dtype)
+    out, address = _out(out, (len(rows),) + array.shape[1:], array.dtype)
     get_native_lib().gather_rows(
-        array.ctypes.data_as(ctypes.c_void_p), _row_bytes(array),
-        rows.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)), len(rows),
-        out.ctypes.data_as(ctypes.c_void_p),
+        array.ctypes.data_as(ctypes.c_void_p), _row_bytes(array), _p_i64(rows), len(rows), address,
     )
     return out

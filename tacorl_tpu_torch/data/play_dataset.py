@@ -22,11 +22,12 @@ from __future__ import annotations
 
 import hashlib
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
 from tacorl_tpu_torch.data.knn import load_or_build_nn_index
+from tacorl_tpu_torch.data.native import pad_windows
 from tacorl_tpu_torch.data.storage import PackedStorage, load_ep_start_end_ids, open_storage
 from tacorl_tpu_torch.utils.profiling import spans
 
@@ -251,15 +252,23 @@ class PlayWindowDataset:
         return isinstance(self.storage, PackedStorage)
 
     def sample_batch(
-        self, indices: Sequence[int], rng: np.random.Generator, rows: slice = slice(None)
+        self,
+        indices: Sequence[int],
+        rng: np.random.Generator,
+        rows: slice = slice(None),
+        alloc: Callable[[Tuple[int, ...], np.dtype], Any] = np.empty,
     ) -> Dict:
-        """One multithreaded gather for the whole batch: all windows are read
-        at max_window_size, then per-item padding semantics are applied in
-        place (repeat-last frames; zero relative actions except the repeated
-        gripper channel). Identical outputs to per-item sample()+collate.
-        ``rows`` keeps those rows of the batch (a rank's share): every row's
-        draws are made, in the order of the whole batch, and only the kept
-        rows are read, so they equal those rows of the whole batch."""
+        """One multithreaded gather for the whole batch, identical to
+        per-item sample()+collate: each window's real rows are read into
+        its place in a max_window_size batch, and with ``pad`` the rows past
+        them are filled in place by the native pad fill (repeat-last frames;
+        zero relative actions except the repeated gripper channel; without
+        ``pad`` every window reads max_window_size rows). The windows and
+        the goal frames are written into ``alloc(shape, dtype)`` per key
+        (the loader's page-locked tensors on a card). ``rows`` keeps those rows of the batch (a rank's share):
+        every row's draws are made, in the order of the whole batch, and
+        only the kept rows are read, so they equal those rows of the whole
+        batch."""
         indices = np.asarray(indices, dtype=np.int64)
         with spans("loader/draws"):
             window_sizes = np.asarray(
@@ -270,36 +279,26 @@ class PlayWindowDataset:
                 goal_steps, disps = self._goal_steps(starts, window_sizes, rng)
                 goal_steps, disps = goal_steps[rows], disps[rows]
         indices, window_sizes, starts = indices[rows], window_sizes[rows], starts[rows]
-        b = len(indices)
         keys = list(self.modalities)
         if not self.real_world:
             for k in STATE_INFO_KEYS:
                 if k not in keys:
                     keys.append(k)
         # both reads in one span: the goal frames are read before the pad
-        # fix-up, which touches only the windows
+        # fill, which touches only the windows
         with spans("loader/gather"):
             data = self.storage.read_window_batch(
-                starts, self.max_window_size, keys
+                starts, self.max_window_size, keys, alloc=alloc,
+                lengths=window_sizes if self.pad else None,
             )
             if self.include_goal:
                 goals = self.storage.read_frame_batch(
-                    goal_steps, self._state_keys()
+                    goal_steps, self._state_keys(), alloc=alloc
                 )
-        # per-item pad fix-up (sampled rows beyond ws are real future frames
-        # and must be replaced by the padding semantics)
         with spans("loader/pad"):
             if self.pad:
-                for i in range(b):
-                    ws = int(window_sizes[i])
-                    if ws == self.max_window_size:
-                        continue
-                    for m in keys:
-                        if "rel" in m:
-                            data[m][i, ws:, :-1] = 0
-                            data[m][i, ws:, -1:] = data[m][i, ws - 1, -1:]
-                        else:
-                            data[m][i, ws:] = data[m][i, ws - 1]
+                for m in keys:
+                    pad_windows(data[m], window_sizes, relative="rel" in m)
         batch = {
             "states": {
                 m: data[m] for m in self.modalities if "action" not in m

@@ -1,6 +1,6 @@
 """Episode storage backends (a copy of tacorl_tpu/data/storage.py; the
 batched reads of packed storage go through the native loader,
-``data/native.py``).
+``data/native.py``, into destinations the caller's ``alloc`` makes).
 
 Two on-disk formats:
 
@@ -24,7 +24,7 @@ from __future__ import annotations
 import json
 import re
 from pathlib import Path
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 
@@ -157,25 +157,38 @@ class PackedStorage:
         window: int,
         keys: Sequence[str],
         pad_rows: int = 0,
-    ) -> Dict[str, np.ndarray]:
+        alloc: Callable[[Tuple[int, ...], np.dtype], Any] = np.empty,
+        lengths: Optional[Sequence[int]] = None,
+    ) -> Dict[str, Any]:
         """B windows in one multithreaded gather (``csrc/episode_loader.cpp``
-        through ``data/native.py``); padding repeats each window's final
-        row."""
+        through ``data/native.py``) into ``alloc(shape, dtype)`` per key;
+        padding repeats each window's final row. With ``lengths`` only each
+        window's first ``lengths[i]`` rows are read, and the rest are left
+        for ``native.pad_windows``."""
         from tacorl_tpu_torch.data.native import gather_windows
 
         rows = self._rows_of(starts)
-        return {
-            k: gather_windows(self._arrays[k], rows, window, pad_rows)
-            for k in keys
-        }
+        out = {}
+        for k in keys:
+            array = self._arrays[k]
+            dest = alloc((len(rows), window + pad_rows) + array.shape[1:], array.dtype)
+            out[k] = gather_windows(array, rows, window, pad_rows, dest, lengths)
+        return out
 
     def read_frame_batch(
-        self, steps: Sequence[int], keys: Sequence[str]
-    ) -> Dict[str, np.ndarray]:
+        self,
+        steps: Sequence[int],
+        keys: Sequence[str],
+        alloc: Callable[[Tuple[int, ...], np.dtype], Any] = np.empty,
+    ) -> Dict[str, Any]:
         from tacorl_tpu_torch.data.native import gather_rows
 
         rows = self._rows_of(steps)
-        return {k: gather_rows(self._arrays[k], rows) for k in keys}
+        out = {}
+        for k in keys:
+            array = self._arrays[k]
+            out[k] = gather_rows(array, rows, alloc((len(rows),) + array.shape[1:], array.dtype))
+        return out
 
 
 def pack_frames(

@@ -2,10 +2,11 @@
 ``count``, ``RECORDER``) on a packed synthetic CALVIN set: nothing is read
 or kept while the recorder is off; each batch's phases on the pool threads,
 inside its ``loader/produce``; the consumer's waits, ready counts and
-device puts; the batches unchanged by the recorder; the spans on the
-profiler's clock and in ``profiling.trace``'s file; the trainer following a
-``torch.profiler`` session; and an abandoned pooled iterator that closes
-silently, its queued batches cancelled."""
+device puts; each batch's share of bytes written in place; the batches
+unchanged by the recorder; the spans on the profiler's clock and in
+``profiling.trace``'s file; the trainer following a ``torch.profiler``
+session; and an abandoned pooled iterator that closes silently, its queued
+batches cancelled."""
 
 import collections
 import json
@@ -75,8 +76,9 @@ def test_the_recorder_off_reads_no_clock_and_keeps_nothing(packed, monkeypatch):
 
 @pytest.mark.parametrize("goals", list(GOALS))
 def test_each_batch_has_one_span_of_each_phase_on_a_pool_thread_inside_its_produce(packed, monkeypatch, goals):
-    # the CPU build has no page-locked allocator: a plain copy stands in
-    monkeypatch.setattr(loader, "_pinned", lambda x: torch.from_numpy(x).clone())
+    # the CPU build has no page-locked allocator: plain tensors stand in
+    monkeypatch.setattr(loader, "_pinned_empty",
+                        lambda shape, dtype: torch.empty(shape, dtype=loader._torch_dtype(dtype)))
     dl = _loader(packed, goals, pin_memory=True)
     main = threading.get_native_id()
     profiling.record(True)
@@ -94,6 +96,35 @@ def test_each_batch_has_one_span_of_each_phase_on_a_pool_thread_inside_its_produ
         for name, tid, start, end, ids, parent in batch_spans:
             assert tid == produce[1] and parent == (None if name == "loader/produce" else "loader/produce")
             assert produce[2] <= start <= end <= produce[3], (key, name)
+
+
+@pytest.mark.parametrize("pin", [False, True], ids=["numpy", "page_locked"])
+@pytest.mark.parametrize("goals", list(GOALS))
+def test_each_batch_has_one_in_place_reading_of_the_share_of_its_bytes_written_page_locked(packed, monkeypatch,
+                                                                                           goals, pin):
+    made = set()
+
+    def stand_in(shape, dtype):
+        # the CPU build has no page-locked allocator: plain tensors stand in, and count as page-locked
+        t = torch.empty(shape, dtype=loader._torch_dtype(dtype))
+        made.add(t.data_ptr())
+        return t
+
+    monkeypatch.setattr(loader, "_pinned_empty", stand_in)
+    monkeypatch.setattr(torch.Tensor, "is_pinned", lambda self, *a: self.data_ptr() in made)
+    dl = _loader(packed, goals, pin_memory=pin)
+    profiling.record(True)
+    batches = list(dl)
+    readings = [c for c in profiling.RECORDER.counts if c[0] == "loader/in_place"]
+    assert sorted((c[3]["epoch"], c[3]["batch"]) for c in readings) == [(1, b) for b in range(len(batches))]
+    # the numpy batch's bytes less those of the leaves that are not windows or goal frames
+    want = _dataset(packed, goals).sample_batch(np.arange(5), np.random.default_rng(0))
+    total = sum(x.nbytes for _, x in loader.flatten(want))
+    small = sum(want[k].nbytes for k in ("idx", "window_size", "disp") if k in want)
+    for reading in readings:
+        assert reading[1] == (pytest.approx(1 - small / total, rel=1e-12) if pin else 0.0)
+    if pin:
+        assert 0.99 < readings[0][1] < 1
 
 
 def test_the_batches_are_bit_equal_with_the_recorder_on_and_off(packed):
