@@ -21,7 +21,19 @@ weights and batches:
   median of theirs;
 * ``first_loss_gap``: ``loss_gap`` at the first step alone, before any
   update, so that it reads the forward pass's rounding and not Adam's
-  first steps, whose signs round-off decides where a gradient is tiny.
+  first steps, whose signs round-off decides where a gradient is tiny;
+* ``grad_diff``: the worst leaf's norm of the difference between the
+  program's first-step gradient (from its Adam state, as ``grad_gap``
+  takes it) and the reference's, relative to the larger of the reference
+  leaf's norm and the median leaf's, over the leaves ``change_gap``
+  holds; ``grad_diff.median``: the median leaf's. Round-off moves a
+  gradient's direction at first order and its norm only at second, so a
+  lower precision shows here where the gaps of norms hide it;
+* ``rank_gap``, where the program ran on more than one rank: the worst
+  leaf's norm of a rank's parameters less rank 0's after step 3, over
+  every rank, relative to the larger of the reference leaf's change and
+  the median leaf's (the leaves ``change_gap`` holds). Every rank applies
+  the same averaged gradients to the same state, so sound ranks agree.
 
 ``loss_gap.<loss>`` and ``first_loss_gap.<loss>`` give each loss's gap.
 
@@ -70,10 +82,16 @@ def numbers(program: dict, ref: dict, start: Dict[str, torch.Tensor]) -> Dict[st
     rc = {n: norm(ref["params"][n] - start[n]) for n in moved}
     medc = statistics.median(rc.values())
     change_gap = max(_rel(norm(params[n] - start[n]) if n in params else 0.0, rc[n], medc) for n in moved)
+    diffs = sorted(_rel(norm(moments[n] / scale - ref["grads"][n]) if n in moments else rg[n], 0.0, max(rg[n], med))
+                   for n in moved)
     out = {"loss_gap": loss_gap, "grad_gap": grad_gap, "change_gap": change_gap,
-           "first_loss_gap": max(first.values())}
+           "first_loss_gap": max(first.values()), "grad_diff": diffs[-1],
+           "grad_diff.median": statistics.median(diffs)}
     out.update({f"loss_gap.{k}": v for k, v in per_loss.items()})
     out.update({f"first_loss_gap.{k}": v for k, v in first.items()})
+
+    if program.get("rank_norms"):
+        out["rank_gap"] = max(_rel(norms[n], 0.0, max(rc[n], medc)) for norms in program["rank_norms"] for n in moved)
 
     follow = {n: norm(ref["params"][n] - start[n]) for n in ref["params"] if n not in rg}
     follow = {n: c for n, c in follow.items() if c > 0.0}

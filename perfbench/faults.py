@@ -1,5 +1,5 @@
 """Faults planted in the timed path, to show that ``correct`` catches each
-fault a training cell on one chip can have:
+fault a training cell can have:
 
 * ``frozen``: the optimizer's step does nothing, so a train step returns
   its state unchanged;
@@ -7,10 +7,11 @@ fault a training cell on one chip can have:
   second, so the step's mean runs over half of the batch;
 * ``altered``: an update altered where it is produced: after each Adam
   step the first parameter of every optimizer moves by one learning rate
-  more.
-
-A four-chip cell adds the exchange between chips left out, which no
-one-chip cell has."""
+  more;
+* ``no_exchange`` (a cell on more than one chip): the exchange between
+  chips left out: the gradients' mean over the ranks
+  (``core/optimizers.py``'s ``all_reduce_mean``) returns each rank's own,
+  so each rank steps on the mean of its own rows."""
 
 from __future__ import annotations
 
@@ -20,11 +21,14 @@ from typing import Iterator, Optional
 import torch
 
 FAULTS = ("frozen", "half_batch", "altered")
+# the faults only a cell on more than one chip can have
+RANK_FAULTS = ("no_exchange",)
 
 
-def _half(batch):
+def half(batch):
+    """``batch`` with its first half repeated in its second, in place."""
     if isinstance(batch, dict):
-        return {k: _half(v) for k, v in batch.items()}
+        return {k: half(v) for k, v in batch.items()}
     n = batch.shape[0] // 2
     batch[n:2 * n] = batch[:n]
     return batch
@@ -35,8 +39,8 @@ def planted(fault: Optional[str]) -> Iterator[None]:
     if fault is None:
         yield
         return
-    if fault not in FAULTS:
-        raise ValueError(f"unknown fault {fault!r}; one of {FAULTS}")
+    if fault not in FAULTS + RANK_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}; one of {FAULTS + RANK_FAULTS}")
     if fault == "frozen":
         target, name = torch.optim.Adam, "step"
         replacement = lambda self, closure=None: None  # noqa: E731
@@ -45,7 +49,12 @@ def planted(fault: Optional[str]) -> Iterator[None]:
 
         target, name = play_dataset.PlayWindowDataset, "sample_batch"
         original = target.sample_batch
-        replacement = lambda self, *a, **k: _half(original(self, *a, **k))  # noqa: E731
+        replacement = lambda self, *a, **k: half(original(self, *a, **k))  # noqa: E731
+    elif fault == "no_exchange":
+        from tacorl_tpu_torch.core import optimizers
+
+        target, name = optimizers, "all_reduce_mean"
+        replacement = list
     else:
         target, name = torch.optim.Adam, "step"
         original = torch.optim.Adam.step

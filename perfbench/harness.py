@@ -34,6 +34,19 @@ rides it with ``Probe``, a trainer callback (the port's ``Callback``):
 After the run the program's state is freed and the reference trains the
 first three steps again, on batches it reads from the data set's files
 itself, from the same weights; ``compare.judge`` decides ``correct``.
+
+A cell on more than one chip runs one process a card (``launch.py`` starts
+them, each calling ``run`` as rank ``RANK`` of ``WORLD_SIZE``), and
+``train.main`` joins the process group through the program's own
+``init_distributed``. Every rank warms the same chunks; at the first step
+of each window chunk the ranks meet at a barrier of the program's host
+group before the start event, so a peer's late batch falls between
+chunks and not in the chunk's first all-reduce; at each window chunk's end
+rank 0's decision to close goes to every rank, so all stop at one step.
+After step 3 each rank's parameters are held against rank 0's (the
+norms of their differences go to rank 0, ``rank_gap``). Rank 0 alone
+profiles, runs the reference (the W ranks' shares of each global batch,
+``reference/<name>.py``) and makes the result.
 """
 
 from __future__ import annotations
@@ -129,7 +142,8 @@ class Record:
     def __init__(self, workload: dict, config: dict):
         self.workload, self.config = workload, config
         self.setup_s = self.window_s = None
-        self.steps = 0
+        self.world = 1
+        self.steps = self.closed_at = 0
         self.batch_wait_ms: List[float] = []
         # each window chunk's milliseconds on the card (CUDA events)
         self.chunk_ms: List[float] = []
@@ -138,7 +152,7 @@ class Record:
 
     @property
     def windows(self) -> int:
-        """Training windows (batch rows) trained in the window."""
+        """Training windows (batch rows, all ranks) trained in the window."""
         return self.steps * int(self.workload["batch_size"])
 
     def least_step_s(self) -> float:
@@ -168,8 +182,16 @@ def make_probe(base):
             self.timing = device.type == "cuda"
             self.chunk_start = None
             self.chunk_events: List[tuple] = []
+            self.rank_norms = None
 
         def on_fit_start(self, trainer, module):
+            from tacorl_tpu_torch.parallel import mesh
+
+            self.mesh = mesh
+            self.rank, self.world = mesh.rank(), mesh.world()
+            self.record.world = self.world
+            # the profiler and the window's marker on rank 0 alone
+            self.profiled = self.traced and self.rank == 0
             trainer.ckpt = None
             net = trainer.state.net
             unknown = set(self.weights) - set(net.state_dict())
@@ -189,8 +211,11 @@ def make_probe(base):
                 graph = self.trainer.step_graph
                 if getattr(graph, "metrics", None) is not None:
                     self._copy(index, graph.metrics)
-            elif self.timing and self.chunk_start is None:
-                self.chunk_start = _event()
+            elif self.chunk_start is None:
+                if self.world > 1:
+                    self.mesh.barrier()
+                if self.timing:
+                    self.chunk_start = _event()
             return None
 
         def _copy(self, done: int, metrics) -> None:
@@ -208,6 +233,23 @@ def make_probe(base):
                 self.beta1 = _optimizers(self.trainer.state.optimizer)[0].param_groups[0]["betas"][0]
             if done == SNAP_STEPS:
                 self.params = {n: p.detach().clone() for n, p in net.named_parameters()}
+                if self.world > 1:
+                    self._hold_ranks()
+
+        def _hold_ranks(self) -> None:
+            """The norm of each leaf's difference from rank 0's after step 3,
+            on every rank, gathered to rank 0 (``rank_norms``, in rank
+            order): rank 0's parameters broadcast over a gloo group of the
+            ranks, on the host."""
+            import torch.distributed as dist
+
+            names = list(self.params)
+            mine = torch.cat([self.params[n].reshape(-1).float().cpu() for n in names])
+            zero = mine.clone()
+            dist.broadcast(zero, src=0, group=dist.new_group(backend="gloo"))
+            pieces = (mine - zero).split([self.params[n].numel() for n in names])
+            norms = {n: compare.norm(d) for n, d in zip(names, pieces)}
+            self.rank_norms = self.mesh.gather_objects(norms)
 
         # -- the window ------------------------------------------------------------
 
@@ -218,7 +260,7 @@ def make_probe(base):
             if self.chunk_start is not None:
                 self.chunk_events.append((self.chunk_start, _event()))
                 self.chunk_start = None
-            if self.traced and self.chunks == self.warm - 1:
+            if self.profiled and self.chunks == self.warm - 1:
                 self._start_profiler()
             if self.opened is None:
                 if self.chunks >= self.warm and len(self.losses) == SNAP_STEPS:
@@ -228,6 +270,8 @@ def make_probe(base):
                 done = self.chunks - self.opened >= self.trace_chunks
             else:
                 done = time.perf_counter() - self.t_open >= self.seconds
+            if self.world > 1:
+                done = self.mesh.gather_objects(done)[0]
             if done:
                 self._close(trainer)
 
@@ -239,10 +283,10 @@ def make_probe(base):
             self.profiler.start()
 
         def _open(self, trainer) -> None:
-            if self.traced and self.profiler is None:
+            if self.profiled and self.profiler is None:
                 self._start_profiler()
             _sync(self.device)
-            if self.traced:
+            if self.profiled:
                 self.marker = torch.profiler.record_function(trace.WINDOW)
                 self.marker.__enter__()
             self.t_open = time.perf_counter()
@@ -252,7 +296,7 @@ def make_probe(base):
         def _close(self, trainer) -> None:
             _sync(self.device)
             t = time.perf_counter()
-            if self.traced:
+            if self.profiled:
                 self.marker.__exit__(None, None, None)
                 self.profiler.stop()
             self.record.window_s = t - self.t_open
@@ -266,7 +310,7 @@ def make_probe(base):
             print(f"perfbench: window {self.record.window_s:.4f} s, {self.record.steps} steps, "
                   f"{self.record.windows / self.record.window_s:.4f} windows/s", file=sys.stderr)
             self.closed = True
-            trainer.max_steps = trainer.global_step
+            self.record.closed_at = trainer.max_steps = trainer.global_step
 
     return Probe
 
@@ -284,6 +328,16 @@ def train_argv(workload: dict, config: dict, data_dir: Path, run_dir: Path, seed
     if device != "cuda":
         argv.append(f"+device={device}")
     return argv + list(config.get("overrides", [])) + list(workload.get("overrides", []))
+
+
+def reference_steps(reference, store: Path, workload: dict, sizes: dict, seed: int, weights, mode: str,
+                    world: int) -> dict:
+    """The reference's first ``SNAP_STEPS`` steps in ``mode`` on the cell's
+    global batches, read again from the set's files; at ``world`` ranks
+    each step is the ranks' shares of its global batch."""
+    device = next(iter(weights.values())).device
+    batches = reference.batches(store, dict(sizes, batch_size=int(workload["batch_size"])), seed, SNAP_STEPS, device)
+    return reference.train_steps(weights, batches, sizes, seed, 0, mode, ranks=world)
 
 
 def write_graft(config: dict, weights: Dict[str, torch.Tensor], run_dir: Path, store: Path, device: str) -> Path:
@@ -309,25 +363,35 @@ def write_graft(config: dict, weights: Dict[str, torch.Tensor], run_dir: Path, s
 
 def run(cell_name: str, seed: int, seconds: float, traced: bool, t0: float, *, device: str = "cuda",
         workload: Optional[dict] = None, config: Optional[dict] = None, data_cache: Optional[Path] = None,
-        metrics: Optional[List[dict]] = None, fault: Optional[str] = None, evidence: bool = False) -> dict:
+        metrics: Optional[List[dict]] = None, fault: Optional[str] = None, evidence: bool = False,
+        scratch: Optional[Path] = None) -> dict:
     """One run; returns the result line's object, with every number that
     ``compare.numbers`` gave under ``numbers`` (those without a limit too).
     ``workload``, ``config``, ``data_cache`` and ``metrics`` replace the
     cell's files (tests run a cell at small sizes on the CPU); ``fault``
-    plants a fault in the timed path (``faults.FAULTS``) to show that
+    plants a fault in the timed path (``faults.py``) to show that
     ``correct`` catches it; ``evidence`` adds what was compared
     (``program``, ``reference``, ``start``) under ``evidence``.
 
-    The run trains one process on one card: a cell that asks for more
-    chips is refused until the harness launches ranks."""
-    if workload is None:
-        workload, config = cell(cell_name)
+    A cell on more than one chip is run by as many processes, each a rank
+    of the launcher's environment (``launch.py``) calling this; the set
+    was written and warmed before they started, and ``scratch`` is the
+    directory the ranks share for the run's directory, which the launcher
+    removes. Rank 0 returns the result
+    with the step its window closed at (``closed_at``), another rank only
+    ``closed_at`` and its ``memory_peak_bytes``."""
+    if workload is None or config is None:
+        files = cell(cell_name)
+        workload, config = workload or files[0], config or files[1]
     chips = int(workload["chips"])
-    if chips != 1:
-        raise NotImplementedError(f"{cell_name} asks for {chips} chips; the harness runs one process on one card")
+    if chips > 1 and int(os.environ.get("WORLD_SIZE", 1)) != chips:
+        raise RuntimeError(f"{cell_name} asks for {chips} chips: run it through perfbench/launch.py")
     if metrics is None:
         metrics = benchmark_metrics(cell_name, traced)
     dev = torch.device(device)
+    if chips > 1 and dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+        torch.cuda.set_device(dev)
     reference = importlib.import_module(f"perfbench.reference.{config['reference']}")
     flops = load_file(HERE / "flops" / f"{workload['config']}.py", f"perfbench_flops_{workload['config']}")
     sizes = config["sizes"]
@@ -335,7 +399,8 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, t0: float, *, d
     record.step_flops = flops.step_flops(sizes)
 
     store = data.ensure_store(config["dataset"], **({"cache": data_cache} if data_cache else {}))
-    data.warm(store)
+    if chips == 1:
+        data.warm(store)
     made = reference.weights(sizes, seed, dev)
     weights = made["full"]
     inject = {k: v for k, v in weights.items() if k.startswith(tuple(made["inject"]))}
@@ -344,7 +409,7 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, t0: float, *, d
     from tacorl_tpu_torch.callbacks.base import Callback
 
     probe = make_probe(Callback)(inject, record, seconds, traced, t0, reference.LOSSES, dev)
-    tmp = Path(tempfile.mkdtemp(prefix="perfbench_run_"))
+    tmp = Path(scratch) if scratch else Path(tempfile.mkdtemp(prefix="perfbench_run_"))
     try:
         argv = train_argv(workload, config, store, tmp / "run", seed, device)
         if "graft" in made:
@@ -354,13 +419,19 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, t0: float, *, d
             trainer = train.main(argv, callbacks=[probe])
         if not probe.closed:
             raise RuntimeError("the run ended before its window closed")
+        # the captured graph holds memory and, under NCCL, the communicator
+        if trainer.step_graph is not None:
+            trainer.step_graph.release()
         peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
-        if traced:
+        if probe.profiler is not None:
             record.trace = trace.reduce(probe.profiler)
-        program = {"losses": probe.losses, "moments": probe.moments, "beta1": probe.beta1, "params": probe.params}
+        program = {"losses": probe.losses, "moments": probe.moments, "beta1": probe.beta1, "params": probe.params,
+                   "rank_norms": probe.rank_norms}
+        rank = probe.rank
         del trainer, probe
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        if not scratch:
+            shutil.rmtree(tmp, ignore_errors=True)
     gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
@@ -368,11 +439,12 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, t0: float, *, d
     found = forbidden_modules()
     if found:
         raise SystemExit(f"loaded modules of JAX or the JAX package: {found}")
+    if rank != 0:
+        return {"closed_at": record.closed_at, "memory_peak_bytes": int(peak)}
 
-    batches = reference.batches(store, sizes, seed, SNAP_STEPS, dev)
-    ref = reference.train_steps(weights, batches, sizes, seed, 0, "f32")
+    ref = reference_steps(reference, store, workload, sizes, seed, weights, "f32", record.world)
     checks = compare.numbers(program, ref, weights)
-    verdict = compare.judge(checks, config["limits"])
+    verdict = compare.judge(checks, {**config["limits"], **workload.get("limits", {})})
 
     values = {}
     for m in metrics:
@@ -387,6 +459,8 @@ def run(cell_name: str, seed: int, seconds: float, traced: bool, t0: float, *, d
         result["breakdown"] = {"device_ops": record.trace.top_ops(), "idle_gaps": record.trace.idle_gaps()}
     if evidence:
         result["evidence"] = {"program": program, "reference": ref, "start": weights}
+    if chips > 1:
+        result["closed_at"] = record.closed_at
     result["numbers"] = checks
     result["checks"] = verdict["checks"]
     return result

@@ -12,11 +12,21 @@ TF32-capable recurrence in bfloat16. The control has to come out as not
 correct; stage 2's does, on its first step's actor loss (which TF32
 matmuls alone move as far), and stage 1's is caught by no number the
 program exposes.
+
+A step of W data-parallel ranks is W shares of the global batch, one a
+rank, whose gradients are averaged before one update. A rank's share
+draws as the whole batch does and keeps its rows (``shard``, ``draw``):
+every batch-shaped draw of the step's generator is made at the global
+shape and sliced to the rank's rows, so the shares together draw what one
+process draws for the global batch; dropout, which cannot draw the global
+batch's masks, draws the rank's own from the step's seed with the rank
+folded in (``seed_step``).
 """
 
 from __future__ import annotations
 
 import contextlib
+import contextvars
 import math
 from typing import Iterator, Optional
 
@@ -37,15 +47,52 @@ def step_seed(seed: int, index: int) -> int:
     return int(np.random.SeedSequence([seed, index]).generate_state(1, np.uint64)[0] >> 1)
 
 
-def seed_step(generator: torch.Generator, device: torch.device, seed: int, index: int) -> None:
+def seed_step(generator: torch.Generator, device: torch.device, seed: int, index: int,
+              rank: int = 0, ranks: int = 1) -> None:
     """Seed the step's generator and the device's default generator (which
-    dropout draws from) for step ``index``, at one rank."""
+    dropout draws from) for step ``index`` at ``rank`` of ``ranks``: the
+    step generator alike on every rank, the default generator from the
+    step's seed with the rank folded in (``step_seed(s, rank)``) where there
+    is more than one."""
     s = step_seed(seed, index)
     generator.manual_seed(s)
+    d = s if ranks == 1 else step_seed(s, rank)
     if device.type == "cuda":
-        torch.cuda.default_generators[device.index or torch.cuda.current_device()].manual_seed(s)
+        torch.cuda.default_generators[device.index or torch.cuda.current_device()].manual_seed(d)
     else:
-        torch.default_generator.manual_seed(s)
+        torch.default_generator.manual_seed(d)
+
+
+# (rank, ranks) of the share being computed
+_SHARD: contextvars.ContextVar = contextvars.ContextVar("perfbench_shard", default=(0, 1))
+
+
+@contextlib.contextmanager
+def shard(rank: int, ranks: int) -> Iterator[None]:
+    """Inside: ``draw`` keeps ``rank``'s rows of each global draw."""
+    token = _SHARD.set((rank, ranks))
+    try:
+        yield
+    finally:
+        _SHARD.reset(token)
+
+
+def draw(fn, shape) -> Tensor:
+    """``fn(shape)``, a draw whose first axis is the batch's; inside
+    ``shard(rank, ranks)``, ``fn`` of ``ranks`` times the rows and the
+    rank's block of them."""
+    rank, ranks = _SHARD.get()
+    shape = tuple(int(s) for s in shape)
+    if ranks == 1:
+        return fn(shape)
+    n = shape[0]
+    return fn((n * ranks,) + shape[1:])[rank * n:(rank + 1) * n]
+
+
+def rows_of(batch: dict, rank: int, ranks: int) -> dict:
+    """``rank``'s block of rows of every leaf of a global batch."""
+    n = next(iter(batch.values())).shape[0] // ranks
+    return {k: v[rank * n:(rank + 1) * n] for k, v in batch.items()}
 
 
 @contextlib.contextmanager
@@ -142,14 +189,14 @@ def jitter_factors(n: int, generator: torch.Generator, brightness: float, contra
     dev = generator.device
 
     def uniform(lo, hi):
-        return torch.rand((n,), generator=generator, device=dev) * (hi - lo) + lo
+        return draw(lambda s: torch.rand(s, generator=generator, device=dev), (n,)) * (hi - lo) + lo
 
     bf = uniform(max(0.0, 1.0 - brightness), 1.0 + brightness)
     cf = uniform(max(0.0, 1.0 - contrast), 1.0 + contrast)
     hf = uniform(-hue, hue)
-    code = torch.randint(0, len(PERM_TABLE), (n,), generator=generator, device=dev)
+    code = draw(lambda s: torch.randint(0, len(PERM_TABLE), s, generator=generator, device=dev), (n,))
     ops = torch.tensor(PERM_TABLE, dtype=torch.float32, device=dev)[code]
-    apply = (torch.rand((n,), generator=generator, device=dev) < prob).float()
+    apply = (draw(lambda s: torch.rand(s, generator=generator, device=dev), (n,)) < prob).float()
     return torch.cat([torch.stack([bf, cf, hf], -1), ops, apply[:, None], torch.zeros((n, 1), device=dev)], -1)
 
 
@@ -204,7 +251,7 @@ def augment_rgb(frames: Tensor, generator: torch.Generator, cfg: dict, p: Precis
     lead = frames.shape[:-3]
     flat = frames.reshape((-1,) + frames.shape[-3:]).movedim(-1, -3)
     n, pad = flat.shape[0], int(cfg["pad"])
-    shifts = torch.randint(0, 2 * pad + 1, (n, 2), generator=generator, device=flat.device)
+    shifts = draw(lambda s: torch.randint(0, 2 * pad + 1, s, generator=generator, device=flat.device), (n, 2))
     factors = jitter_factors(n, generator, cfg["brightness"], cfg["contrast"], cfg["hue"], cfg["jitter_prob"])
     out = jitter_normalize(resize_shift(flat, shifts, tuple(cfg["size"]), pad, p), factors)
     return out.reshape(lead + out.shape[1:])

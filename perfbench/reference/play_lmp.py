@@ -18,6 +18,11 @@ a generator seeded per step (``common.seed_step``): the augmentation's
 shifts and jitter factors and the posterior's standard normal from the
 step generator, dropout (the posterior's, p from the configuration) from
 the device's default generator through the same torch modules.
+
+At W data-parallel ranks (``train_steps(..., ranks=W)``) a step is the W
+ranks' shares of the global batch (``common``: each share's draws are its
+rows of the global draws, its dropout its own), their gradients averaged
+into one Adam step.
 """
 
 from __future__ import annotations
@@ -35,9 +40,12 @@ from perfbench.reference.common import (
     augment_rgb,
     balanced_kl,
     dense,
+    draw,
     logistic_mixture_log_prob,
     relu_rnn,
+    rows_of,
     seed_step,
+    shard,
 )
 
 LN_EPS = 1e-6
@@ -209,7 +217,8 @@ class PlayLMP(nn.Module):
         prior_m, prior_s = self.plan_proposal.policy(torch.cat([emb[:, 0], goal], -1))
         post_m, post_s = self.plan_recognition(emb)
         kl = balanced_kl(post_m, post_s, prior_m, prior_s, s["kl_alpha"]).mean()
-        eps = torch.randn(post_m.shape, generator=generator, device=post_m.device, dtype=post_m.dtype)
+        eps = draw(lambda shape: torch.randn(shape, generator=generator, device=post_m.device, dtype=post_m.dtype),
+                   post_m.shape)
         plan = torch.tanh(post_m + post_s * eps)
         action_loss = self.action_decoder.loss(plan, emb[:, :-1], actions[:, :-1], s, p)
         return kl * s["kl_beta"] + action_loss
@@ -221,12 +230,15 @@ def held_at_zero(name: str) -> bool:
 
 
 def train_steps(weights: Dict[str, Tensor], batches: List[Dict[str, Tensor]], sizes: dict, seed: int,
-                first_index: int, mode: str = "f32") -> dict:
+                first_index: int, mode: str = "f32", ranks: int = 1, exchange: bool = True) -> dict:
     """Train ``len(batches)`` steps from ``weights`` as the program's steps
-    ``first_index, first_index + 1, ...`` of a run seeded ``seed``.
-    Returns each step's ``losses``, ``grads`` (each trained leaf's
-    gradient at the first step) and ``params`` (each leaf after the last
-    step), all float32 on the device of the weights."""
+    ``first_index, first_index + 1, ...`` of a run seeded ``seed``, each
+    batch a global batch over ``ranks`` data-parallel ranks. Returns each
+    step's ``losses`` (rank 0's share), ``grads`` (each trained leaf's
+    gradient at the first step, the mean of the ranks') and ``params``
+    (each leaf after the last step), all float32 on the device of the
+    weights. ``exchange=False`` leaves the ranks' mean out, as the fault
+    ``no_exchange`` does: rank 0 steps on its own share's gradient."""
     device = next(iter(weights.values())).device
     p = Precision(mode)
     net = PlayLMP(sizes).to(device)
@@ -238,16 +250,35 @@ def train_steps(weights: Dict[str, Tensor], batches: List[Dict[str, Tensor]], si
     losses, grads = [], {}
     with p.context():
         for i, batch in enumerate(batches):
-            seed_step(generator, device, seed, first_index + i)
-            opt.zero_grad(set_to_none=True)
-            loss = net.loss(batch, generator, p)
-            loss.backward()
+            loss = _mean_of_shares(net, named, batch, generator, p, seed, first_index + i, ranks, exchange)
             if i == 0:
                 grads = {n: q.grad.detach().clone() for n, q in named}
             opt.step()
             losses.append(loss.detach())
     params = {n: q.detach().clone() for n, q in net.named_parameters()}
     return {"losses": {"total_loss": torch.stack(losses)}, "grads": grads, "params": params}
+
+
+def _mean_of_shares(net: PlayLMP, named, batch: Dict[str, Tensor], generator: torch.Generator, p: Precision,
+                    seed: int, index: int, ranks: int, exchange: bool = True) -> Tensor:
+    """Each rank's share of step ``index`` on its rows, the gradients
+    summed and divided by ``ranks`` into ``.grad`` (without ``exchange``,
+    rank 0's alone); returns rank 0's loss."""
+    device = next(net.parameters()).device
+    total = {n: torch.zeros_like(q) for n, q in named}
+    losses = []
+    for r in range(ranks if exchange else 1):
+        seed_step(generator, device, seed, index, r, ranks)
+        net.zero_grad(set_to_none=True)
+        with shard(r, ranks):
+            loss = net.loss(rows_of(batch, r, ranks), generator, p)
+        loss.backward()
+        for n, q in named:
+            total[n] += q.grad
+        losses.append(loss.detach())
+    for n, q in named:
+        q.grad = total[n] / (ranks if exchange else 1)
+    return losses[0]
 
 
 LOSSES = ("total_loss",)

@@ -288,10 +288,13 @@ def _named(net: nn.Module, prefix: str):
 
 
 def train_steps(weights_: Dict[str, Tensor], batches: List[Dict[str, Tensor]], sizes: dict, seed: int,
-                first_index: int, mode: str = "f32") -> dict:
+                first_index: int, mode: str = "f32", ranks: int = 1) -> dict:
     """As ``play_lmp.train_steps``: each step's losses (``LOSSES``), each
     trained leaf's gradient at the first step as its optimizer gets it
-    (after the global-norm clip), every leaf after the last step."""
+    (after the global-norm clip), every leaf after the last step. One rank
+    only: the ranks' shares of a global batch are stage 1's alone."""
+    if ranks != 1:
+        raise NotImplementedError("the stage-2 reference trains one rank")
     device = next(iter(weights_.values())).device
     p = Precision(mode)
     net = make(sizes).to(device)

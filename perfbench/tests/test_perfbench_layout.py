@@ -106,15 +106,6 @@ def test_a_cell_and_a_metric_are_added_with_new_files_and_entries_only(tmp_path,
     assert result["correct"] and result["metrics"]["windows_per_step"]["value"] == 8.0
 
 
-def test_a_cell_on_more_than_one_chip_is_refused():
-    """The harness trains one process on one card: a cell that asks for
-    four chips is refused before anything runs, not run on one card."""
-    workload, config = harness.cell("lmp_k16_b64")
-    with pytest.raises(NotImplementedError, match="4 chips"):
-        harness.run("lmp_k16_b256_dp4", 1, 1.0, False, 0.0, device="cpu", workload=dict(workload, chips=4),
-                    config=config, metrics=[])
-
-
 def test_the_command_fails_without_the_program(tmp_path):
     shutil.copytree(harness.HERE, tmp_path / "perfbench", ignore=shutil.ignore_patterns("__pycache__"))
     shutil.copy(ROOT / "BENCHMARK.json", tmp_path)
