@@ -7,10 +7,13 @@ infers from the image, the modality's (H, W) from ``image_sizes``
 (``data/transforms.py:image_sizes``) where its config does not set
 ``input_hw``.
 
-It refuses an encoder with BatchNorm (``DeepSpatialEncoder`` with
-``use_batch_norm``, ``ResNet18Encoder``, ``R3MEncoder``):
-``NotImplementedError(BATCHNORM_FAULT)``. The networks themselves are
-ported and held against flax on their own."""
+It refuses an encoder whose BatchNorm trains (``DeepSpatialEncoder`` with
+``use_batch_norm``, ``ResNet18Encoder``): one with a ``FlaxBatchNorm`` in
+train mode once the encoder is put in train mode, whose running statistics
+a train step would move: ``NotImplementedError(BATCHNORM_FAULT)``. The
+networks themselves are ported and held against flax on their own.
+``R3MEncoder`` is accepted: its frozen backbone keeps eval-mode BatchNorm
+in train mode, so its statistics are buffers no step changes."""
 
 from __future__ import annotations
 
@@ -26,11 +29,11 @@ from tacorl_tpu_torch.networks.encoders import CustomEncoder, FlaxBatchNorm
 __all__ = ["BATCHNORM_FAULT", "LateFusion", "build_late_fusion"]
 
 BATCHNORM_FAULT = (
-    "an encoder with BatchNorm (DeepSpatialEncoder with use_batch_norm, "
-    "ResNet18Encoder, R3MEncoder) inside a module is not ported: the JAX modules "
-    "keep only the 'params' collection, so their train steps fail for want of "
-    "'batch_stats' (flax ScopeCollectionNotFound) and cannot run it either "
-    "(ROADMAP Queue 3)"
+    "an encoder whose BatchNorm trains (DeepSpatialEncoder with use_batch_norm, "
+    "ResNet18Encoder) inside a module is not ported: a train step would move its "
+    "running statistics, and the JAX modules keep only the 'params' collection, so "
+    "their train steps fail for want of 'batch_stats' (flax ScopeCollectionNotFound) "
+    "and cannot run it either (ROADMAP Queue 3)"
 )
 
 
@@ -117,7 +120,7 @@ def build_late_fusion(
         if cls is CustomEncoder and modality in (image_sizes or {}):
             cfg.setdefault("input_hw", image_sizes[modality])
         encoder = cls(**cfg)
-        if any(isinstance(m, FlaxBatchNorm) for m in encoder.modules()):
+        if any(isinstance(m, FlaxBatchNorm) and m.training for m in encoder.train().modules()):
             raise NotImplementedError(f"{modality}: {BATCHNORM_FAULT}")
         encoders[modality] = encoder
     return LateFusion(encoders, vector_dims)

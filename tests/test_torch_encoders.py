@@ -268,6 +268,20 @@ def test_vector_encoder_matches_jax(hidden):
 # -- building from configs ---------------------------------------------------------------
 
 
+def test_late_fusion_builds_r3m_and_refuses_a_trainable_resnet():
+    """R3M's frozen backbone (eval-mode BatchNorm in train mode) is built;
+    a ResNet-18 whose BatchNorm trains is refused."""
+    r3m = {"_target_": "tacorl_tpu.networks.resnet.R3MEncoder", "latent_dim": 5, "hidden_dim": 8, "width": 8,
+           "r3m_trunk": True, "compute_dtype": None}
+    fusion = build_late_fusion({"rgb_static": r3m}, ["rgb_static"], {}, {"rgb_static": (32, 32)})
+    assert fusion.encode({"rgb_static": torch.rand(N, 3, 32, 32)}, ["rgb_static"]).shape == (N, 5)
+    resnet = {"_target_": "tacorl_tpu.networks.resnet.ResNet18Encoder", "latent_dim": 5, "stage_sizes": [1],
+              "width": 8}
+    with pytest.raises(NotImplementedError, match="ResNet18Encoder") as err:
+        build_late_fusion({"rgb_static": resnet}, ["rgb_static"], {}, {"rgb_static": (32, 32)})
+    assert BATCHNORM_FAULT in str(err.value)
+
+
 def test_late_fusion_gives_each_encoder_its_input_shape():
     networks = {
         "rgb_static": {"_target_": "tacorl_tpu.networks.encoders.CustomEncoder", **CUSTOM},
@@ -286,7 +300,9 @@ def test_late_fusion_gives_each_encoder_its_input_shape():
 @pytest.mark.parametrize("target", ["encoders.DeepSpatialEncoder", "resnet.ResNet18Encoder", "resnet.R3MEncoder"])
 def test_batch_norm_encoders_fail_in_both_modules(target):
     """The JAX module keeps only "params", so a BatchNorm encoder's train
-    step fails for want of "batch_stats"; the port refuses to build it."""
+    step fails for want of "batch_stats"; the port refuses to build one
+    whose BatchNorm trains and builds R3M's, whose frozen backbone keeps
+    its statistics as buffers no step changes."""
     from tests.test_torch_play_lmp import _batch, _cfg
 
     extra = {"stage_sizes": [1], "width": 8} if target.endswith("ResNet18Encoder") else {}
@@ -303,9 +319,14 @@ def test_batch_norm_encoders_fail_in_both_modules(target):
     # the train step's loss opens with these embeddings
     with pytest.raises(flax.errors.ScopeCollectionNotFound, match="batch_stats"):
         jmod.net.apply({"params": params["params"]}, states, True, method="get_emb_states")
+    if target.endswith("R3MEncoder"):
+        module = PlayLMPModule(cfg, device="cpu")
+        assert not module.net.perceptual_encoder.networks["rgb_static"].train().backbone.training
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP Queue 3") as err:
         PlayLMPModule(cfg, device="cpu")
     assert BATCHNORM_FAULT in str(err.value)
+    assert "R3MEncoder" not in BATCHNORM_FAULT
 
 
 # -- the converter's posterior LayerNorms ------------------------------------------------
